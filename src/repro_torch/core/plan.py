@@ -1,0 +1,231 @@
+"""Plan / quantize / execute split for the Ozaki-II emulated GEMM; the torch
+counterpart of ``repro/core/plan.py``.
+
+  qa = quantize_matrix(A, "lhs", ms, mode="fast")   # plan + quantize
+  qb = quantize_matrix(B, "rhs", ms, mode="fast")
+  C  = ozmm_prepared(qa, qb)                        # execute (reuses digits)
+
+Fast-mode execution is bitwise-equal to ``ozmm``; accurate mode runs the
+bound GEMM between the cached round-up casts and extracts residues at
+pairing time, reproducing the unprepared path exactly.
+``plan_from_arrays`` turns a JAX plan's leaves (as numpy arrays) into a
+plan of this package, so a plan built by the reference executes here with
+the same bits. The plan wire format and ``transpose_plan`` are not ported
+yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import crt, numerics, quantize, scaling
+from .moduli import ModuliSet, make_moduli_set
+
+ROLES = ("lhs", "rhs")
+MODES = ("fast", "accurate")
+
+
+@dataclasses.dataclass(frozen=True)
+class OperandStats:
+    """Magnitude sketches of one operand along both axes."""
+
+    row_sq: Optional[torch.Tensor]   # (m,) sum of squares along axis 1
+    row_max: Optional[torch.Tensor]  # (m,) abs-max along axis 1
+    col_sq: Optional[torch.Tensor]   # (k,) sum of squares along axis 0
+    col_max: Optional[torch.Tensor]  # (k,) abs-max along axis 0
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedMatrix:
+    """A prepared Ozaki-II operand: plan metadata + cached quantization.
+
+    ``role`` is "lhs" (rows scaled, contraction along axis 1) or "rhs"
+    (columns scaled, contraction along axis 0). Fast mode caches ``lscale``
+    and the per-modulus residue ``parts``; accurate mode caches the
+    round-up e4m3 cast ``bar`` and its prescale ``lpre``.
+    """
+
+    role: str
+    family: str
+    num_moduli: int
+    mode: str
+    x: Optional[torch.Tensor]        # float64 source
+    stats: Optional[OperandStats]
+    lscale: Optional[torch.Tensor]   # fast mode: int32 scale exponents
+    parts: Optional[tuple]           # fast mode: per-modulus residue parts
+    lpre: Optional[torch.Tensor]     # accurate mode: prescale exponents
+    bar: Optional[torch.Tensor]      # accurate mode: round-up e4m3 cast
+
+    @property
+    def ms(self) -> ModuliSet:
+        return make_moduli_set(self.family, self.num_moduli)
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        if self.x is not None:
+            return tuple(self.x.shape)
+        return tuple(self.parts[0][0].shape)  # residue parts mirror the operand
+
+    @property
+    def device(self) -> torch.device:
+        return (self.x if self.x is not None else self.parts[0][0]).device
+
+
+def operand_stats(x: torch.Tensor) -> OperandStats:
+    """Both-axis magnitude sketches (row/col squared norms and abs-maxima)."""
+    ax = x.abs()
+    sq = x * x
+    return OperandStats(sq.sum(dim=1), ax.amax(dim=1), sq.sum(dim=0), ax.amax(dim=0))
+
+
+def quantize_matrix(x: torch.Tensor, role: str, ms: ModuliSet, *,
+                    mode: str = "accurate",
+                    stats: OperandStats | None = None) -> QuantizedMatrix:
+    """Build the reusable quantization plan of one 2-D operand."""
+    if role not in ROLES:
+        raise ValueError(f"role must be one of {ROLES}, got {role!r}")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    x = x.to(torch.float64)
+    if x.ndim != 2:
+        raise ValueError(f"quantize_matrix needs a 2-D operand, got {tuple(x.shape)}")
+    st = operand_stats(x) if stats is None else stats
+    lscale = parts = lpre = bar = None
+    if mode == "fast":
+        k = x.shape[1] if role == "lhs" else x.shape[0]
+        sq, mx = (st.row_sq, st.row_max) if role == "lhs" else (st.col_sq, st.col_max)
+        lscale = scaling.fast_exponents(sq, mx, k, ms)
+        parts = quantize.quantize_operand(
+            x, lscale, 0 if role == "lhs" else 1, ms, pow2_tables(ms, x.device))
+    else:
+        lpre, bar = scaling.accurate_prescale(x, 1 if role == "lhs" else 0)
+    return QuantizedMatrix(role=role, family=ms.family, num_moduli=ms.n,
+                           mode=mode, x=x, stats=st, lscale=lscale,
+                           parts=parts, lpre=lpre, bar=bar)
+
+
+def pow2_tables(ms: ModuliSet, device) -> torch.Tensor:
+    """The (N, POW2_TABLE_LEN) int32 2^e-mod-p tables on ``device``."""
+    return torch.as_tensor(ms.pow2_mod_tables, device=device)
+
+
+def residue_products(pa, pb, ms: ModuliSet) -> list[torch.Tensor]:
+    """Run the low-precision GEMM schedule on two per-modulus part tuples;
+    return the centred residues C'_l. Per modulus: int8 1 GEMM; square
+    p = s^2 3 GEMMs (eq. 12); Karatsuba 3 GEMMs (eq. 8/9)."""
+    cs: list[torch.Tensor] = []
+    for l, (p, sq, s) in enumerate(zip(ms.ps, ms.is_square, ms.split_s)):
+        ap, bp = pa[l], pb[l]
+        if ms.family == "int8":
+            cparts = (numerics.matmul_exact_int8(ap[0], bp[0]),)
+        elif sq:
+            (a1, a2), (b1, b2) = ap, bp
+            cparts = (numerics.matmul_exact_fp8(a1, b2),
+                      numerics.matmul_exact_fp8(a2, b1),
+                      numerics.matmul_exact_fp8(a2, b2))
+        else:
+            cparts = tuple(numerics.matmul_exact_fp8(x, y) for x, y in zip(ap, bp))
+        cs.append(crt.combine_residue_product(cparts, p, sq, s, ms.family))
+    return cs
+
+
+def _check_pair(qa: QuantizedMatrix, qb: QuantizedMatrix) -> ModuliSet:
+    if qa.role != "lhs" or qb.role != "rhs":
+        raise ValueError(f"ozmm_prepared needs (lhs, rhs), got ({qa.role}, {qb.role})")
+    if (qa.family, qa.num_moduli, qa.mode) != (qb.family, qb.num_moduli, qb.mode):
+        raise ValueError(
+            "operand plans disagree: "
+            f"({qa.family}, {qa.num_moduli}, {qa.mode}) vs "
+            f"({qb.family}, {qb.num_moduli}, {qb.mode})")
+    if qa.shape[1] != qb.shape[0]:
+        raise ValueError(f"contraction mismatch {qa.shape} @ {qb.shape}")
+    return qa.ms
+
+
+def pair_exponents(qa: QuantizedMatrix, qb: QuantizedMatrix):
+    """Scale exponents (lmu, lnu) of the pairing: cached in fast mode; the
+    single bound GEMM between the cached round-up casts in accurate mode."""
+    ms = _check_pair(qa, qb)
+    if qa.mode == "fast":
+        return qa.lscale, qb.lscale
+    k = qa.x.shape[1]
+    cbar = scaling.bound_gemm_inflate(numerics.matmul_exact_fp8(qa.bar, qb.bar), k)
+    lmu = scaling.accurate_exponents(cbar.amax(dim=1), qa.lpre, qa.stats.row_max, ms)
+    lnu = scaling.accurate_exponents(cbar.amax(dim=0), qb.lpre, qb.stats.col_max, ms)
+    return lmu, lnu
+
+
+def pair_scales(qa: QuantizedMatrix, qb: QuantizedMatrix):
+    """Resolve the pairing: (lmu, lnu, parts_a, parts_b). Fast mode returns
+    the cached exponents and residues; accurate mode derives the exponents
+    by the bound GEMM and extracts residues for this pairing."""
+    ms = _check_pair(qa, qb)
+    lmu, lnu = pair_exponents(qa, qb)
+    if qa.mode == "fast":
+        return lmu, lnu, qa.parts, qb.parts
+    tables = pow2_tables(ms, qa.x.device)
+    return (lmu, lnu, quantize.quantize_operand(qa.x, lmu, 0, ms, tables),
+            quantize.quantize_operand(qb.x, lnu, 1, ms, tables))
+
+
+def ozmm_prepared(qa: QuantizedMatrix, qb: QuantizedMatrix) -> torch.Tensor:
+    """Execute the emulated GEMM from two prepared operands: bitwise equal to
+    ``ozmm_ozaki2(a, b)`` in fast mode, exactly reproduced in accurate mode."""
+    ms = _check_pair(qa, qb)
+    lmu, lnu, parts_a, parts_b = pair_scales(qa, qb)
+    digits = crt.garner_digits(residue_products(parts_a, parts_b, ms), ms)
+    return crt.reconstruct(digits, ms, lmu, lnu)
+
+
+# ---------------------------------------------------------------------------
+# Interchange with the JAX package
+# ---------------------------------------------------------------------------
+
+def _tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """numpy -> tensor; ml_dtypes' float8_e4m3fn (which numpy knows only as
+    an opaque 1-byte type) travels as its uint8 bit pattern."""
+    a = np.array(a)  # a writable, contiguous copy (JAX hands out read-only views)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8)).view(numerics.E4M3).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def plan_from_arrays(role: str, family: str, num_moduli: int, mode: str,
+                     arrays: dict[str, np.ndarray], *, device="cpu") -> QuantizedMatrix:
+    """Rebuild a plan from a JAX ``QuantizedMatrix``'s leaves as numpy arrays.
+
+    Keys: ``x``, ``row_sq``, ``row_max``, ``col_sq``, ``col_max``,
+    ``lscale``, ``lpre``, ``bar`` (absent leaves may be left out), and one
+    ``parts.<l>.<i>`` per residue part (modulus l in selection order, part i
+    of that modulus' tuple). A fast-mode plan built by ``repro`` executes
+    here with the same bits.
+    """
+    ms = make_moduli_set(family, num_moduli)
+    if role not in ROLES or mode not in MODES:
+        raise ValueError(f"bad plan metadata: role={role!r}, mode={mode!r}")
+
+    def get(key):
+        return _tensor_from_numpy(arrays[key], device) if key in arrays else None
+
+    stats = OperandStats(get("row_sq"), get("row_max"), get("col_sq"), get("col_max"))
+    parts = None
+    if any(key.startswith("parts.") for key in arrays):
+        parts = tuple(
+            tuple(get(f"parts.{l}.{i}") for i in range(_count_parts(arrays, l)))
+            for l in range(ms.n))
+    return QuantizedMatrix(role=role, family=family, num_moduli=num_moduli,
+                           mode=mode, x=get("x"), stats=stats,
+                           lscale=get("lscale"), parts=parts,
+                           lpre=get("lpre"), bar=get("bar"))
+
+
+def _count_parts(arrays: dict, l: int) -> int:
+    n = 0
+    while f"parts.{l}.{n}" in arrays:
+        n += 1
+    if n == 0:
+        raise ValueError(f"plan arrays hold no parts for modulus {l}")
+    return n

@@ -1,0 +1,65 @@
+// Integer and f64 helpers of the Ozaki-II reconstruction, shared by the CUDA
+// kernels of repro_torch.
+//
+// Device counterparts of repro/kernels/crt_reconstruct/kernel.py (_centered,
+// _cmod, _combine, _garner, lines 24-49) and of numerics.ldexp_wide. They
+// must give the reference's integers bit for bit: C's % truncates toward
+// zero while jnp.mod and torch.remainder floor, so every reduction goes
+// through floor_mod.
+#pragma once
+
+#include <cstdint>
+
+namespace ozaki {
+
+// x mod p in [0, p) for p > 0 (floor semantics).
+__device__ __forceinline__ int floor_mod(int x, int p) {
+  int r = x % p;
+  return r < 0 ? r + p : r;
+}
+
+// Centred representative of r in [0, p): odd p -> [-(p-1)/2, (p-1)/2],
+// even p -> [-p/2, p/2-1].
+__device__ __forceinline__ int centered(int r, int p) {
+  return r > (p - 1) / 2 ? r - p : r;
+}
+
+__device__ __forceinline__ int cmod(int x, int p) { return centered(floor_mod(x, p), p); }
+
+// Centred residue of one modulus' product from its partial products:
+// eq. (12) for a square modulus p = s^2 (c1 = A1B2, c2 = A2B1, c3 = A2B2),
+// eq. (9) for a Karatsuba modulus (c1 = A1B1, c2 = A2B2, c3 = (A1+A2)(B1+B2)),
+// the big terms reduced first so every intermediate stays below 2^31.
+__device__ __forceinline__ int combine(int c1, int c2, int c3, int p, bool square, int s) {
+  if (square) return cmod(s * (c1 + c2) + c3, p);
+  return cmod(256 * cmod(c1, p) + cmod(c2, p) + 16 * cmod(c3 - c1 - c2, p), p);
+}
+
+// Balanced Garner mixed-radix digit i (radix order) from the centred residue
+// t of radix modulus i and the digits before it; inv_col[j] is the inverse of
+// radix modulus j mod radix modulus i. |values| < 1089^2 < 2^21.
+__device__ __forceinline__ int garner_digit(int t, int pi, const int* digits,
+                                            const int* inv_col, int stride, int i) {
+  for (int j = 0; j < i; ++j) t = cmod((t - digits[j]) * inv_col[j * stride], pi);
+  return cmod(t, pi);
+}
+
+// floor(e / 2): ldexp_wide's split is a floor division, C's / truncates.
+__device__ __forceinline__ int floor_half(int e) { return e >= 0 ? e / 2 : -((1 - e) / 2); }
+
+// 2^e as float64 from its bit pattern: exact wherever representable, 0 below
+// 2^-1074, inf above 2^1023 (numerics.pow2 of the plain version).
+__device__ __forceinline__ double pow2(int e) {
+  if (e > 1023) return __longlong_as_double(0x7FF0000000000000LL);
+  if (e >= -1022) return __longlong_as_double(static_cast<long long>(e + 1023) << 52);
+  if (e >= -1074) return __longlong_as_double(1LL << (e + 1074));
+  return 0.0;
+}
+
+// x * 2^e in two exact halves (numerics.ldexp_wide).
+__device__ __forceinline__ double ldexp_wide(double x, int e) {
+  int e1 = floor_half(e);
+  return __dmul_rn(__dmul_rn(x, pow2(e1)), pow2(e - e1));
+}
+
+}  // namespace ozaki

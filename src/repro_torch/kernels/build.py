@@ -1,0 +1,71 @@
+"""Build a CUDA source of ``repro_torch/csrc`` into a shared library with a
+plain C interface and load it with ``ctypes``.
+
+``nvcc`` compiles for ``sm_90a`` at first use, into a directory keyed by a
+hash of the sources and flags, so a changed source is never served a stale
+library. The directory is ``$REPRO_TORCH_BUILD_DIR`` when set, else
+``repro_torch/_build`` beside the package (listed in ``.gitignore``). Each
+build leaves ``<name>.log`` beside the library, with ptxas's register,
+shared-memory and spill report.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
+
+# No --use_fast_math: it brings approximate division and flush-to-zero.
+# --fmad=false keeps nvcc from contracting a multiply and an add into an FMA
+# where the kernel did not ask for one (__fma_rn), which would change the
+# rounding of the f64 epilogue.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+
+def build_dir() -> Path:
+    env = os.environ.get(BUILD_DIR_ENV)
+    return Path(env) if env else CSRC.parent / "_build"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (neither on PATH nor under $CUDA_HOME/bin); "
+                       "the CUDA kernels of repro_torch are built at first use")
+
+
+def library_path(source: str) -> Path:
+    """Where the library of ``csrc/<source>`` lives for the current sources."""
+    src = CSRC / source
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in [src, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return build_dir() / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Build ``csrc/<source>`` unless a library of the same sources exists,
+    then load it. Raises RuntimeError with nvcc's output if the build fails."""
+    out = library_path(source)
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) building {source}:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return ctypes.CDLL(str(out))

@@ -1,0 +1,197 @@
+"""The fused raw-frame emulated GEMM: wrapper of the hand-written Hopper kernel
+``csrc/fused_raw.cu``, which replaces ``repro/kernels/fused/kernel.py::
+ozmm_fused_raw`` (body ``_kernel_raw``), and its plain PyTorch version.
+
+``ozmm_fused_raw`` takes both operands as sign-folded two-limb raw frames
+x = (mh*2^26 + ml) * 2^e (``ops.decompose_raw``), the pairing exponents
+lmu (m, 1) / lnu (1, n) and the 2^e-mod-p tables, and returns the f64
+product: on-chip residues, e4m3 split (or int8), the eq. (8)/(12) products
+(or the single int8 product), combine, balanced Garner digits, Kahan f64 sum
+and ``ldexp_wide``, all in one launch.
+
+A CUDA tensor goes to the kernel or raises; only CPU tensors take the plain
+version ``ozmm_fused_raw_ref``, the port's counterpart of the Pallas
+interpreter. ``ozmm_fused_raw.launches`` counts kernel launches and
+``ozmm_fused_raw_ref.calls`` plain-version calls.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import crt, numerics, quantize
+from repro_torch.core.moduli import POW2_TABLE_LEN, ModuliSet
+from repro_torch.core.plan import residue_products
+
+from ..build import load_library
+
+MANT_SPLIT = 26  # raw frame: mant = mh * 2^26 + ml (ops.decompose_raw)
+
+#: (BM, BN, BK) compiled into csrc/fused_raw.cu; operands arrive padded to it.
+KERNEL_TILE = (64, 64, 64)
+#: MAXN in csrc/fused_raw.cu: N int16 residue tiles of BM x BN sit in
+#: shared memory (8 KiB each) beside the part and table buffers.
+MAX_MODULI = 20
+#: Largest contraction the int32 arithmetic keeps exact: the square-modulus
+#: combine reaches 67*k*2^8 and the int8 accumulator k*2^14, both < 2^31.
+MAX_K = 2 ** 16
+
+_KIND_SQUARE, _KIND_KARATSUBA, _KIND_INT8 = 0, 1, 2
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+def _residue_tile(mh, ml, sc, p: int, pw):
+    """Centred residue mod ``p`` of trunc(2^sc * (mh*2^26 + ml)), int32.
+    Negative ``sc`` truncates by shifts of the magnitudes (the sign is
+    applied afterwards), the high-limb shift clipped to 31; positive ``sc``
+    multiplies by 2^sc mod p from the table, indices clipped to the table."""
+    amh, aml = mh.abs(), ml.abs()
+    sg = torch.where(mh != 0, torch.sign(mh), torch.sign(ml))
+    t = torch.clamp(-sc, min=0)
+    tl = torch.clamp(t, max=MANT_SPLIT)
+    th = torch.clamp(t - MANT_SPLIT, 0, 31)
+    mh_sh = amh >> th
+    ml_sh = aml >> tl
+    sp = torch.clamp(sc, min=0)
+    hi_cap = pw.shape[0] - 1
+    idx_h = torch.clamp(MANT_SPLIT - tl + sp, 0, hi_cap).long()
+    idx_l = torch.clamp(sp, 0, hi_cap).long()
+    r = torch.remainder(torch.remainder(mh_sh, p) * pw[idx_h]
+                        + torch.remainder(ml_sh, p) * pw[idx_l], p)
+    return numerics.centered_mod(sg * r, p)
+
+
+def ozmm_fused_raw_ref(mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl, *,
+                       ms: ModuliSet) -> torch.Tensor:
+    """Plain PyTorch version of ``ozmm_fused_raw`` on whole matrices, on the
+    inputs' device: the kernel's residues from the raw frames, then the core
+    route's split, products (f32 or f64 matmuls of the integer-valued parts,
+    exact), combine, Garner digits and Kahan sum, so the plain version
+    equals the core route by construction."""
+    ozmm_fused_raw_ref.calls += 1
+
+    def parts(mh, ml, sc):
+        return quantize.split_residues(
+            [_residue_tile(mh, ml, sc, p, tbl[l]) for l, p in enumerate(ms.ps)], ms)
+
+    cs = residue_products(parts(mh_a, ml_a, e_a + lmu), parts(mh_b, ml_b, e_b + lnu), ms)
+    return crt.reconstruct(crt.garner_digits(cs, ms), ms, lmu[:, 0], lnu[0])
+
+
+ozmm_fused_raw_ref.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _load() -> ctypes.CDLL:
+    lib = load_library("fused_raw.cu")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ozmm_fused_raw_launch.argtypes = [ptr] * 10 + [i32] * 5 + [ptr] * 8
+    lib.ozmm_fused_raw_launch.restype = i32
+    lib.mma_probe_launch.argtypes = [ptr, ptr, i32, ptr, ptr, i32, ptr]
+    lib.mma_probe_launch.restype = i32
+    lib.cuda_error_string.argtypes = [i32]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _host_consts(ms: ModuliSet) -> tuple[np.ndarray, ...]:
+    """Moduli constants the C entry copies into the kernel's parameter block:
+    ps, split_s, kind (selection order), radix_order, radix_ps, garner_inv
+    (N x N, row j = inverse of radix modulus j), radix weights."""
+    if ms.family == "int8":
+        kind = [_KIND_INT8] * ms.n
+    else:
+        kind = [_KIND_SQUARE if sq else _KIND_KARATSUBA for sq in ms.is_square]
+    i32 = functools.partial(np.ascontiguousarray, dtype=np.int32)
+    return (i32(ms.ps), i32(ms.split_s), i32(kind), i32(ms.radix_order),
+            i32(ms.radix_ps), i32(ms.garner_inv),
+            np.ascontiguousarray(ms.radix_weights_f64, dtype=np.float64))
+
+
+def _check_inputs(args, ms: ModuliSet) -> torch.device:
+    mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl = args
+    m, k = mh_a.shape
+    n = mh_b.shape[1]
+    want = [(m, k)] * 3 + [(m, 1)] + [(k, n)] * 3 + [(1, n), (ms.n, POW2_TABLE_LEN)]
+    for name, t, shape in zip(("mh_a", "ml_a", "e_a", "lmu", "mh_b", "ml_b",
+                               "e_b", "lnu", "tbl"), args, want):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"ozmm_fused_raw: {name} must be a contiguous int32 "
+                             f"tensor of shape {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
+    if any(d % b for d, b in zip((m, n, k), KERNEL_TILE)):
+        raise ValueError(f"ozmm_fused_raw: (m, n, k) = {(m, n, k)} must be "
+                         f"multiples of the kernel tile {KERNEL_TILE} (ops pads)")
+    if k > MAX_K:
+        raise ValueError(f"ozmm_fused_raw: k = {k} exceeds {MAX_K}, beyond "
+                         "which the int32 residue products are not exact")
+    if ms.n > MAX_MODULI:
+        raise ValueError(f"ozmm_fused_raw: {ms.n} moduli exceed the kernel's "
+                         f"{MAX_MODULI} shared-memory residue tiles")
+    devices = {t.device for t in args}
+    if len(devices) != 1:
+        raise ValueError(f"ozmm_fused_raw: inputs on several devices {devices}")
+    return devices.pop()
+
+
+def ozmm_fused_raw(mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl, *,
+                   ms: ModuliSet) -> torch.Tensor:
+    """Fused emulated GEMM from raw frames, (m, n) float64. CUDA tensors run
+    the kernel (or raise); CPU tensors run ``ozmm_fused_raw_ref``."""
+    args = (mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl)
+    dev = _check_inputs(args, ms)
+    if dev.type == "cpu":
+        return ozmm_fused_raw_ref(*args, ms=ms)
+    if dev.type != "cuda":
+        raise ValueError(f"ozmm_fused_raw runs on CUDA or CPU tensors, got {dev}")
+    lib = _load()
+    m, k = mh_a.shape
+    n = mh_b.shape[1]
+    out = torch.empty((m, n), dtype=torch.float64, device=dev)
+    consts = _host_consts(ms)
+    err = lib.ozmm_fused_raw_launch(
+        *(t.data_ptr() for t in args), out.data_ptr(), m, n, k, ms.n, dev.index,
+        *(c.ctypes.data for c in consts), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"ozmm_fused_raw: launch failed with CUDA error {err} "
+                           f"({lib.cuda_error_string(err).decode()})")
+    ozmm_fused_raw.launches += 1
+    return out
+
+
+ozmm_fused_raw.launches = 0
+
+
+def mma_probe(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the kernel's own k32 FP8 MMA step on e4m3 ``a`` (16, k) @ ``b``
+    (k, 8), k a multiple of 32, on the card. Returns the product as the
+    kernel forms it (int32, each k32 step from a zero f32 fragment) and as a
+    plain f32 accumulation across the k steps would (float32)."""
+    if a.dtype != numerics.E4M3 or b.dtype != numerics.E4M3 or not a.is_cuda:
+        raise ValueError("mma_probe takes e4m3 CUDA tensors")
+    k = a.shape[1]
+    if a.shape != (16, k) or b.shape != (k, 8) or k % 32:
+        raise ValueError(f"mma_probe needs (16, k) @ (k, 8) with k % 32 == 0, "
+                         f"got {tuple(a.shape)} @ {tuple(b.shape)}")
+    lib = _load()
+    a, bt = a.contiguous(), b.t().contiguous()
+    exact = torch.empty((16, 8), dtype=torch.int32, device=a.device)
+    chained = torch.empty((16, 8), dtype=torch.float32, device=a.device)
+    err = lib.mma_probe_launch(a.data_ptr(), bt.data_ptr(), k, exact.data_ptr(),
+                               chained.data_ptr(), a.device.index,
+                               torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"mma_probe: launch failed with CUDA error {err} "
+                           f"({lib.cuda_error_string(err).decode()})")
+    return exact, chained

@@ -1,0 +1,10 @@
+"""Precision policies of the port (spec grammar and context stack)."""
+from .context import current_policy, resolve_policy, set_default_policy, use_policy
+from .policy import (BACKENDS, DEFAULT_NUM_SLICES, MODES, NATIVE, OZAKI2_FAMILY,
+                     SCHEMES, PrecisionPolicy, coerce_policy, parse_policy)
+
+__all__ = [
+    "BACKENDS", "DEFAULT_NUM_SLICES", "MODES", "NATIVE", "OZAKI2_FAMILY",
+    "SCHEMES", "PrecisionPolicy", "coerce_policy", "parse_policy",
+    "current_policy", "resolve_policy", "set_default_policy", "use_policy",
+]

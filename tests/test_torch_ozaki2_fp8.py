@@ -1,0 +1,13 @@
+"""repro_torch's ozmm vs repro.core.ozaki2.ozmm_ozaki2, bitwise, for the
+paper's fp8-hybrid family (ozaki2-fp8) at its default moduli, on both routes
+(core, and '+pallas' -> the fused kernel's plain version)."""
+import pytest
+
+from _torch_parity import PRIME_ISH, assert_both_routes_match_reference, operands
+
+
+@pytest.mark.parametrize("mode", ["fast", "accurate"])
+def test_fp8_hybrid_default_moduli_bitwise(mode):
+    for seed, phi in ((0, 0.5), (1, 2.0)):  # same shape: one JAX compile
+        a, b = operands(seed, PRIME_ISH, phi)
+        assert_both_routes_match_reference(a, b, "fp8-hybrid", mode)
