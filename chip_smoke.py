@@ -1,26 +1,48 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (repro_torch) on one NVIDIA H100.
 
-    python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py                          # from the root of a checkout
+    python3 chip_smoke.py --size 2048 --hpl-n 2048  # a quick first call
 
 Phases, each printing its elapsed time; any failed check raises and the
 script exits non-zero without printing a result:
 
-1. card: name and power limit; build of the CUDA kernels from csrc/.
-2. MMA probe: the fused kernel's own k32 FP8 MMA step on +-16 and mixed
+1. card: name and power limit; build of the CUDA kernels from csrc/ (one
+   nvcc per source, all started together).
+2. MMA probe: the fused kernels' own k32 FP8 MMA step on +-16 and mixed
    e4m3 patterns at k up to 65536 against an int64 product; also reports
    whether a plain f32 accumulation across k steps would have been exact.
-3. kernel vs plain version, bitwise (torch.equal), at 1024^3, 1000x997x1003
-   and the main-path size, for ozaki2-fp8 fast/accurate, ozaki2-karatsuba
-   fast and ozaki2-int8 fast; and against the port's '+core' route.
+3. K1 (ozmm_fused_raw) vs its plain version, bitwise (torch.equal), at
+   1024^3, 1000x997x1003 and the main-path size, for ozaki2-fp8
+   fast/accurate, ozaki2-karatsuba fast and ozaki2-int8 fast; and against
+   the port's '+core' route.
 4. main path: ozmm(a, b, "ozaki2-fp8/accurate") and ".../fast" through
-   backend auto at the main-path size; the kernel's launch count must move;
+   backend auto at the main-path size; K1's launch count must move;
    normwise error vs cuBLAS DGEMM <= 2^-44; integer inputs reproduce A @ B
    to rtol 1e-14 (the reference's own gate, tests/core/test_ozmm_accuracy.py:
    the f64-rounded Garner weights leave ~1 ulp) and bit for bit on a rerun.
-5. timings: median of 5 CUDA-event-timed runs after a warm-up, for the
-   kernel, its plain version and cuBLAS DGEMM (torch.matmul in float64, a
-   yardstick the port never calls), with the kernel's roofline bound.
+5. K1 timings: median of 3 CUDA-event-timed runs after a warm-up, for the
+   kernel, its plain version and a whole ozmm call (5 for the cheaper
+   layers and cuBLAS DGEMM, torch.matmul in float64, a yardstick the port
+   never calls), with the kernel's roofline bound.
+6. K2 (ozmm_fused_parts) on plans prepared on the card, bitwise against its
+   plain version, the '+core' route and the unprepared ozmm (K1), at the
+   three shapes of phase 3, for ozaki2-fp8, ozaki2-karatsuba and ozaki2-int8
+   fast; one accurate prepared pair on '+pallas' (K1 under the bound GEMM's
+   exponents) against '+core'; K2's timings (median of 5 after a warm-up)
+   at the main-path size beside K1's and cuBLAS DGEMM's.
+7. linalg on the card: run_hpl(n, policy, block=128, refine_steps=1) for
+   native (cuBLAS DGEMM through the same driver), ozaki2-fp8/fast (K2 on
+   every trailing update and TRSM fold) and ozaki2-fp8/accurate (K1 on the
+   prepared pairs), each scaled residual <= 16 and each kernel's launch
+   count moving by the count the code predicts, with the time split between
+   the kernels, the rest of the GEMM layer and the host; each kernel at the
+   inputs of its first call at every distinct shape of the run (TRSM folds,
+   trailing updates, residuals) bitwise against its plain version; lu_factor
+   and lu_solve at n = 1024 on '+pallas' bitwise equal to '+core', in fast
+   (K2) and accurate (K1) mode; one Cholesky refine_solve of an SPD matrix at
+   n = 2048 (SYRK's plan x plan tiles on K2), its K2 calls checked the same
+   way.
 
 The last two lines are the card (nvidia-smi name, power limit) and
 {"ok": true, "device": {...}}; before them a {"kernels": [...]} line.
@@ -44,7 +66,13 @@ H100_BYTES_PER_S = 3.35e12
 H100_FP8_OPS_PER_S = 1.979e15
 POLICIES = ("ozaki2-fp8/fast", "ozaki2-fp8/accurate", "ozaki2-karatsuba/fast",
             "ozaki2-int8/fast")
-TIMED = ("ozaki2-fp8/fast", "ozaki2-fp8/accurate", "ozaki2-int8/fast")
+#: Prepared (fast-mode) pairings run on K2.
+K2_POLICIES = ("ozaki2-fp8/fast", "ozaki2-karatsuba/fast", "ozaki2-int8/fast")
+HPL_POLICIES = ("native", "ozaki2-fp8/fast", "ozaki2-fp8/accurate")
+HPL_BLOCK = 128
+#: Timed runs of K1 (~4 s each at 8192^3) and of the ozmm calls around it;
+#: 3 rather than 5 keeps the whole run near half its time limit.
+K1_REPS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -94,6 +122,98 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+class CallTotals:
+    """Wraps ``module.name`` while in the block and totals the time of its
+    calls: between CUDA events recorded on the current stream before and
+    after each call (``events=True``: device time, which also counts the
+    call's own host work while the card waits for it), or by the host clock
+    (for host functions that end in a synchronizing copy)."""
+
+    def __init__(self, module, name: str, *, events: bool = True):
+        self.module, self.name, self.events, self.spans = module, name, events, []
+
+    def __enter__(self):
+        import torch
+
+        self.orig = fn = getattr(self.module, self.name)
+
+        def timed(*a, **kw):
+            if self.events:
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                out = fn(*a, **kw)
+                end.record()
+            else:
+                start = time.perf_counter()
+                out = fn(*a, **kw)
+                end = time.perf_counter()
+            self.spans.append((start, end))
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    def seconds(self) -> float:
+        import torch
+
+        if not self.events:
+            return sum(e - s for s, e in self.spans)
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.spans) / 1e3
+
+
+def shapes_of(x):
+    """The shapes of a call's tensor arguments, nested as the arguments are."""
+    if isinstance(x, (tuple, list)):
+        return tuple(shapes_of(v) for v in x)
+    return tuple(x.shape) if hasattr(x, "shape") else None
+
+
+class FirstCallPerShape:
+    """Wraps ``module.name`` while in the block and keeps the arguments of
+    its first call at each distinct set of input shapes, so that each can be
+    held against the plain version after the run."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, {}
+
+    def __enter__(self):
+        self.orig = fn = getattr(self.module, self.name)
+
+        def keep(*a, **kw):
+            self.calls.setdefault(shapes_of(a), (a, kw))
+            return fn(*a, **kw)
+
+        setattr(self.module, self.name, keep)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    def check(self, kern, ref, what: str) -> int:
+        """Runs ``kern`` and ``ref`` on each kept call's arguments and requires
+        the same bits; returns the number of shapes checked and frees them."""
+        for key, (a, kw) in self.calls.items():
+            check_equal(kern(*a, **kw), ref(*a, **kw), f"{what} at input shapes {key}")
+        n, self.calls = len(self.calls), {}
+        return n
+
+
+def part_bytes(ms, m: int, k: int, n: int) -> int:
+    """Bytes K2 must read and write: the parts it reads (2 per square
+    modulus, 3 per Karatsuba modulus, 1 per int8 modulus) of both operands,
+    lmu and lnu, and the f64 product."""
+    if ms.family == "int8":
+        parts = ms.n
+    else:
+        parts = sum(2 if sq else 3 for sq in ms.is_square)
+    return parts * (m * k + k * n) + 4 * (m + n) + 8 * m * n
+
+
 def check_equal(x, y, what: str) -> None:
     """Bitwise equality (torch.equal); on failure, name the first difference."""
     import torch
@@ -135,6 +255,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size", type=int, default=8192,
                     help="m = n = k of the main path (default 8192)")
+    ap.add_argument("--hpl-n", type=int, default=8192,
+                    help="n of the HPL runs of phase 7 (default 8192)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -144,14 +266,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
               file=sys.stderr)
         return 1
-    from repro_torch import ozmm
+    import numpy as np
+
+    from repro_torch import linalg, ozmm, prepare_operand
     from repro_torch.core import gemm
     from repro_torch.core.moduli import DEFAULT_NUM_MODULI
     from repro_torch.core.scaling import compute_scaling
-    from repro_torch.kernels import build
-    from repro_torch.kernels.fused import (KERNEL_TILE, fused_raw_args, kernel,
-                                           mma_probe, ozmm_fused_raw,
-                                           ozmm_fused_raw_ref)
+    from repro_torch.kernels import build, stack_parts
+    from repro_torch.kernels.fused import (KERNEL_TILE, SOURCES, fused_parts_args,
+                                           fused_raw_args, kernel, mma_probe, ops,
+                                           ozmm_fused_parts, ozmm_fused_parts_ref,
+                                           ozmm_fused_raw, ozmm_fused_raw_ref)
+    from repro_torch.linalg import blas3
+    from repro_torch.linalg import lu as lu_mod
+    from repro_torch.linalg import solve as solve_mod
     from repro_torch.precision import parse_policy
 
     dev = torch.device("cuda")
@@ -162,14 +290,16 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"capability {torch.cuda.get_device_capability(dev)}", flush=True)
     tb = time.perf_counter()
+    build.build_all(SOURCES)
     kernel._load()
-    print(f"build: fused_raw.cu -> {build.library_path('fused_raw.cu').name} "
-          f"in {time.perf_counter() - tb:.1f} s", flush=True)
-    log = build.library_path("fused_raw.cu").with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
+    kernel._load_parts()
+    print(f"build: {', '.join(SOURCES)} (one nvcc each, in parallel) in "
+          f"{time.perf_counter() - tb:.1f} s", flush=True)
+    for source in SOURCES:
+        log = build.library_path(source).with_suffix(".log")
+        for line in log.read_text().splitlines() if log.exists() else ():
             if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas: {line.strip()}")
+                print(f"  ptxas {source}: {line.strip()}")
     t0 = phase("1 card+build", t0)
 
     # ---- 2. MMA probe -----------------------------------------------------
@@ -219,11 +349,12 @@ def main() -> int:
     b = lognormal(gen, (big, big), 0.5, dev)
     check(gemm._resolve_backend(parse_policy("ozaki2-fp8/accurate"), dev) == "pallas",
           "backend auto did not resolve to the kernel route on this card")
-    ozmm_fused_raw.launches = 0
+    ozmm_fused_raw.launches = ozmm_fused_parts.launches = 0
     out = {spec: ozmm(a, b, spec) for spec in ("ozaki2-fp8/accurate", "ozaki2-fp8/fast")}
     torch.cuda.synchronize()
     main_launches = ozmm_fused_raw.launches
     check(main_launches >= 1, "the main path never launched ozmm_fused_raw")
+    check(ozmm_fused_parts.launches == 0, "unprepared ozmm calls launched K2")
     dgemm = torch.matmul(a, b)
     for spec, c in out.items():
         check(c.shape == (big, big) and bool(torch.isfinite(c).all()),
@@ -252,7 +383,7 @@ def main() -> int:
     # ---- 5. timings -----------------------------------------------------------
     rows = []
     library_ms = cuda_ms(lambda: torch.matmul(a, b))
-    for spec in TIMED:
+    for spec in POLICIES:
         pol = parse_policy(spec)
         ms = pol.moduli_set()
         scal = compute_scaling(a, b, ms, pol.mode)
@@ -261,10 +392,10 @@ def main() -> int:
         plain = ozmm_fused_raw_ref(*fa, ms=ms)
         max_err = (got - plain).abs().max().item()
         del got, plain
-        ms_kernel = cuda_ms(lambda: ozmm_fused_raw(*fa, ms=ms))
-        ms_plain = cuda_ms(lambda: ozmm_fused_raw_ref(*fa, ms=ms))
+        ms_kernel = cuda_ms(lambda: ozmm_fused_raw(*fa, ms=ms), K1_REPS)
+        ms_plain = cuda_ms(lambda: ozmm_fused_raw_ref(*fa, ms=ms), K1_REPS)
         # where an ozmm call's time goes: scaling, raw frames + padding, kernel
-        layers = {"ozmm_ms": cuda_ms(lambda: ozmm(a, b, spec)),
+        layers = {"ozmm_ms": cuda_ms(lambda: ozmm(a, b, spec), K1_REPS),
                   "scaling_ms": cuda_ms(lambda: compute_scaling(a, b, ms, pol.mode)),
                   "frames_ms": cuda_ms(lambda: fused_raw_args(a, scal.lmu, b, scal.lnu,
                                                               ms, KERNEL_TILE))}
@@ -291,13 +422,182 @@ def main() -> int:
     check(all(r["max_abs_err"] == 0.0 for r in rows), "kernel and plain version differ")
     t0 = phase("5 timings", t0)
     print(json.dumps({"k1_by_policy": rows}))
+
+    # ---- 6. K2 on prepared plans: bitwise, then timed ---------------------
+    k1_ms = {r["policy"]: r["ms"] for r in rows}
+    k2_rows = []
+    shapes = dict.fromkeys(((1024, 1024, 1024), (1000, 997, 1003), (big, big, big)))
+    a_main, b_main = a, b
+    for m, k, n in shapes:
+        if (m, k, n) == (big, big, big):
+            a, b = a_main, b_main
+        else:
+            a, b = lognormal(gen, (m, k), 0.5, dev), lognormal(gen, (k, n), 0.5, dev)
+        for spec in K2_POLICIES:
+            ms = parse_policy(spec).moduli_set()
+            qa, qb = prepare_operand(a, "lhs", spec), prepare_operand(b, "rhs", spec)
+            fa = fused_parts_args(stack_parts(qa.parts, ms), qa.lscale,
+                                  stack_parts(qb.parts, ms), qb.lscale, ms, KERNEL_TILE)
+            launches = ozmm_fused_parts.launches
+            got = ozmm_fused_parts(*fa, ms=ms)
+            plain = ozmm_fused_parts_ref(*fa, ms=ms)
+            torch.cuda.synchronize()
+            check(ozmm_fused_parts.launches == launches + 1, f"{spec}: K2 did not launch")
+            check_equal(got, plain, f"{spec} {m}x{k}x{n}: K2 vs plain version")
+            check_equal(got[:m, :n], ozmm(qa, qb, spec + "+core"),
+                        f"{spec} {m}x{k}x{n}: K2 vs +core")
+            check_equal(got[:m, :n], ozmm(a, b, spec), f"{spec} {m}x{k}x{n}: K2 vs unprepared")
+            print(f"  {spec:24s} {m}x{k}x{n}: K2 == plain == core == unprepared ozmm "
+                  "(bitwise)", flush=True)
+            max_err = (got - plain).abs().max().item()
+            del plain
+            if (m, k, n) == (big, big, big):
+                ms_k2 = cuda_ms(lambda: ozmm_fused_parts(*fa, ms=ms))
+                ms_plain = cuda_ms(lambda: ozmm_fused_parts_ref(*fa, ms=ms))
+                ms_prepared = cuda_ms(lambda: ozmm(qa, qb, spec))
+                products = ms.n if ms.family == "int8" else 3 * ms.n
+                t_ops = products * 2 * m * n * k / H100_FP8_OPS_PER_S * 1e3
+                t_bytes = part_bytes(ms, m, k, n) / H100_BYTES_PER_S * 1e3
+                k2_rows.append({
+                    "name": "ozmm_fused_parts", "policy": spec, "shape": [m, k, n],
+                    "num_moduli": ms.n, "route": "cuda",
+                    "source": "src/repro_torch/csrc/fused_parts.cu",
+                    "replaces": "src/repro/kernels/fused/kernel.py:265",
+                    "max_abs_err": max_err,
+                    "ms": ms_k2, "plain_ms": ms_plain, "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                    "library_ms": library_ms, "k1_ms": k1_ms[spec],
+                    "prepared_ozmm_ms": ms_prepared})
+                print(f"  {spec:24s} K2 {ms_k2:.2f} ms (K1 {k1_ms[spec]:.2f} ms), plain "
+                      f"{ms_plain:.2f} ms, bound {max(t_ops, t_bytes):.2f} ms, cuBLAS DGEMM "
+                      f"{library_ms:.2f} ms; ozmm(qa, qb) {ms_prepared:.2f} ms", flush=True)
+            del qa, qb, fa, got
+            torch.cuda.empty_cache()
+    del a, b, a_main, b_main
+    check(all(r["max_abs_err"] == 0.0 for r in k2_rows), "K2 and its plain version differ")
+    spec = "ozaki2-fp8/accurate"
+    a, b = lognormal(gen, (1024, 1024), 0.5, dev), lognormal(gen, (1024, 1024), 0.5, dev)
+    qa, qb = prepare_operand(a, "lhs", spec), prepare_operand(b, "rhs", spec)
+    launches = ozmm_fused_raw.launches
+    check_equal(ozmm(qa, qb, spec + "+pallas"), ozmm(qa, qb, spec + "+core"),
+                f"{spec} prepared 1024^3: +pallas (K1) vs +core")
+    check(ozmm_fused_raw.launches == launches + 1, "the accurate prepared pair skipped K1")
+    print(f"  {spec} prepared 1024^3: +pallas (K1 under pair_exponents) == +core")
+    del a, b, qa, qb
+    torch.cuda.empty_cache()
+    t0 = phase("6 K2", t0)
+    print(json.dumps({"k2_by_policy": k2_rows}))
+
+    # ---- 7. linalg / HPL on the card --------------------------------------
+    hn = args.hpl_n
+    nb = -(-hn // HPL_BLOCK)
+    # per LU solve, nb(nb-1)/2 TRSM folds each way; refine_steps=1 solves
+    # twice and takes two accurate residuals (unprepared ozmm: K1)
+    pairings = (nb - 1) + 2 * nb * (nb - 1)
+    expect = {"native": (0, 0), "ozaki2-fp8/fast": (2, pairings),
+              "ozaki2-fp8/accurate": (pairings + 2, 0)}  # (K1, K2) launches
+    hpl_rows = []
+    for spec in HPL_POLICIES:
+        with CallTotals(ops, "ozmm_fused_raw") as t1, \
+                CallTotals(ops, "ozmm_fused_parts") as t2, \
+                CallTotals(blas3, "backend_matmul") as tg, \
+                CallTotals(lu_mod, "pivot_argmax", events=False) as t_piv, \
+                CallTotals(lu_mod, "rank1_update", events=False) as t_rank1, \
+                CallTotals(lu_mod, "trsm", events=False) as t_u12, \
+                CallTotals(solve_mod, "lu_factor", events=False) as t_factor, \
+                CallTotals(solve_mod, "lu_solve", events=False) as t_solve, \
+                FirstCallPerShape(ops, "ozmm_fused_raw") as c1, \
+                FirstCallPerShape(ops, "ozmm_fused_parts") as c2:
+            ozmm_fused_raw.launches = ozmm_fused_parts.launches = 0
+            torch.cuda.synchronize()
+            th = time.perf_counter()
+            res = linalg.run_hpl(hn, spec, block=HPL_BLOCK, refine_steps=1, seed=args.seed)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - th
+            launches = (ozmm_fused_raw.launches, ozmm_fused_parts.launches)
+        row = {"policy": spec, "n": hn, "block": HPL_BLOCK, "seconds": secs,
+               "gflops": linalg.hpl_flop_count(hn) / secs / 1e9,
+               "scaled_residual": res["scaled_residual"], "k1_launches": launches[0],
+               "k2_launches": launches[1], "k1_s": t1.seconds(), "k2_s": t2.seconds(),
+               "gemm_calls": len(tg.spans), "gemm_layer_s": tg.seconds(),
+               "factor_s": t_factor.seconds(), "pivot_s": t_piv.seconds(),
+               "rank1_s": t_rank1.seconds(), "u12_trsm_s": t_u12.seconds(),
+               "solves_s": t_solve.seconds()}
+        row["host_s"] = secs - row["gemm_layer_s"]
+        # the factorization less its panels and U12 TRSMs: the trailing
+        # updates (GEMM, copy back, host subtraction)
+        row["trailing_s"] = row["factor_s"] - row["pivot_s"] - row["rank1_s"] - row["u12_trsm_s"]
+        hpl_rows.append(row)
+        print(f"  HPL {spec:20s} n={hn}: {secs:.2f} s, {row['gflops']:.1f} GFLOP/s, scaled "
+              f"residual {res['scaled_residual']:.3e}; GEMM layer {row['gemm_layer_s']:.2f} s "
+              f"({row['gemm_calls']} calls) of which K2 {row['k2_s']:.2f} s "
+              f"({launches[1]} launches), K1 {row['k1_s']:.2f} s ({launches[0]} launches); "
+              f"host {row['host_s']:.2f} s. By stage: factor {row['factor_s']:.2f} s = pivot "
+              f"search {row['pivot_s']:.2f} + panel rank-1 updates {row['rank1_s']:.2f} + U12 "
+              f"TRSM {row['u12_trsm_s']:.2f} + trailing updates {row['trailing_s']:.2f}; "
+              f"2 LU solves {row['solves_s']:.2f} s", flush=True)
+        check(res["passed"], f"HPL {spec}: scaled residual {res['scaled_residual']} > 16")
+        check(launches == expect[spec],
+              f"HPL {spec}: (K1, K2) launches {launches}, predicted {expect[spec]}")
+        # each kernel at the inputs of its first call at every distinct shape
+        # of this run (TRSM folds onto one column, every trailing update, the
+        # refinement residuals), bitwise against its plain version
+        n1 = c1.check(ozmm_fused_raw, ozmm_fused_raw_ref, f"HPL {spec}: K1 vs plain version")
+        n2 = c2.check(ozmm_fused_parts, ozmm_fused_parts_ref, f"HPL {spec}: K2 vs plain version")
+        print(f"  HPL {spec}: K1 at {n1} and K2 at {n2} distinct input shapes == plain "
+              "version (bitwise)", flush=True)
+    a1, b1 = linalg.hpl_matrix(1024, seed=args.seed + 2)
+    nb1 = 1024 // HPL_BLOCK
+    lu_pairings = (nb1 - 1) + nb1 * (nb1 - 1)  # trailing updates + the solve's folds
+    for spec, want in (("ozaki2-fp8/fast", (0, lu_pairings)),
+                       ("ozaki2-fp8/accurate", (lu_pairings, 0))):
+        ozmm_fused_raw.launches = ozmm_fused_parts.launches = 0
+        lu_k, perm_k = linalg.lu_factor(a1, spec + "+pallas", block=HPL_BLOCK)
+        x_k = linalg.lu_solve(lu_k, perm_k, b1, spec + "+pallas", block=HPL_BLOCK)
+        launches = (ozmm_fused_raw.launches, ozmm_fused_parts.launches)
+        check(launches == want, f"LU n=1024 {spec}+pallas: (K1, K2) launches {launches}, "
+                                f"predicted {want}")
+        lu_c, perm_c = linalg.lu_factor(a1, spec + "+core", block=HPL_BLOCK)
+        x_c = linalg.lu_solve(lu_c, perm_c, b1, spec + "+core", block=HPL_BLOCK)
+        check((ozmm_fused_raw.launches, ozmm_fused_parts.launches) == launches,
+              f"LU n=1024 {spec}+core launched a kernel")
+        check(np.array_equal(perm_k, perm_c) and np.array_equal(lu_k, lu_c),
+              f"LU n=1024 {spec}: +pallas and +core factorizations differ")
+        check(np.array_equal(x_k, x_c), f"LU n=1024 {spec}: +pallas and +core solves differ")
+        print(f"  LU n=1024 {spec}: +pallas ({launches} (K1, K2) launches) == +core, "
+              "factorization and solve (bitwise)", flush=True)
+    rng = np.random.default_rng(args.seed + 3)
+    g = rng.random((2048, 2048)) - 0.5
+    spd, rhs = g @ g.T / 2048 + np.eye(2048), rng.random(2048) - 0.5
+    cb = 2048 // HPL_BLOCK
+    # SYRK's plan x plan tiles over the trailing block rows, then two TRSMs
+    # of cb(cb-1)/2 folds for each of the 3 solves of refine_steps=2
+    want_k2 = (cb - 1) * cb * (cb + 1) // 6 + 3 * cb * (cb - 1)
+    ozmm_fused_parts.launches = 0
+    with FirstCallPerShape(ops, "ozmm_fused_parts") as c2:
+        x, info = linalg.refine_solve(spd, rhs, "ozaki2-fp8/fast", factor="cholesky",
+                                      block=HPL_BLOCK)
+    chol_launches = ozmm_fused_parts.launches
+    n2 = c2.check(ozmm_fused_parts, ozmm_fused_parts_ref, "Cholesky refine: K2 vs plain version")
+    chol_resid = linalg.hpl_scaled_residual(spd, x, rhs)
+    check(chol_launches == want_k2,
+          f"Cholesky refine: {chol_launches} K2 launches, predicted {want_k2}")
+    check(chol_resid <= linalg.HPL_THRESHOLD, f"Cholesky refine: scaled residual {chol_resid}")
+    print(f"  Cholesky refine_solve n=2048 ozaki2-fp8/fast: {want_k2} K2 launches, at {n2} "
+          f"distinct input shapes == plain version (bitwise); scaled residual "
+          f"{chol_resid:.3e}, residual history {info['residuals']}")
+    t0 = phase("7 linalg/HPL", t0)
+    print(json.dumps({"hpl": hpl_rows}))
     print(f"total {time.perf_counter() - t_start:.1f} s; DEFAULT_NUM_MODULI "
           f"{DEFAULT_NUM_MODULI}", flush=True)
 
-    main = next(r for r in rows if r["policy"] == "ozaki2-fp8/accurate")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: main[k] for k in keys}]}))
+    main = next(r for r in rows if r["policy"] == "ozaki2-fp8/accurate")
+    k2_main = dict(next(r for r in k2_rows if r["policy"] == "ozaki2-fp8/fast"),
+                   launches=next(r for r in hpl_rows
+                                 if r["policy"] == "ozaki2-fp8/fast")["k2_launches"])
+    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in (main, k2_main)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,9 @@ The port of the JAX package ``repro`` (its reference, held against it by
     from repro_torch import ozmm
     c = ozmm(a, b, "ozaki2-fp8/accurate")           # on the H100
     c = ozmm(a, b, "ozaki2-fp8/fast", device="cpu")  # on the CPU
+
+``repro_torch.linalg`` holds the blocked factorizations, solves and the HPL
+harness on top of it.
 """
 from .core import (DEFAULT_NUM_MODULI, QuantizedMatrix, backend_matmul,
                    make_moduli_set, ozmm, ozmm_ozaki2, ozmm_prepared,

@@ -6,14 +6,16 @@ Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"`` and raises when no CUDA device exists; it
 never falls back to the CPU. The tests pass ``device="cpu"``.
 
-Executors of an Ozaki-II policy: the core torch path (``ozmm_ozaki2``) or
-the kernel route (``ozmm_pallas_fused``: the fused Hopper kernel on CUDA
-tensors, its plain version on CPU tensors). ``backend="auto"`` takes the
-kernel route on a compute-capability-9.0 card and core elsewhere.
+Executors of an Ozaki-II policy: the core torch path (``ozmm_ozaki2``,
+``ozmm_prepared`` for prepared operands) or the kernel route
+(``ozmm_pallas_fused``, ``ozmm_pallas_fused_prepared``: the fused Hopper
+kernels on CUDA tensors, their plain versions on CPU tensors).
+``backend="auto"`` takes the kernel route on a compute-capability-9.0 card
+and core elsewhere.
 
 Not ported yet: the custom VJP (a gradient through an emulated ``ozmm``
-raises ``NotImplementedError``), the phase-split ``+unfused`` pipeline,
-prepared operands on the kernel route, and the Ozaki-I scheme.
+raises ``NotImplementedError``), the phase-split ``+unfused`` pipeline and
+the Ozaki-I scheme.
 """
 from __future__ import annotations
 
@@ -70,6 +72,14 @@ def _executor(pol: PrecisionPolicy, dev: torch.device):
               mode=pol.mode)
     if _resolve_backend(pol, dev) == "core":
         return functools.partial(ozmm_ozaki2, **kw), "core"
+    _check_kernel_route(pol, dev)
+    from repro_torch.kernels.fused import ozmm_pallas_fused  # lazy: core <- kernels
+
+    return functools.partial(ozmm_pallas_fused, **kw), "pallas"
+
+
+def _check_kernel_route(pol: PrecisionPolicy, dev: torch.device) -> None:
+    """Raise where the kernel route cannot run ``pol`` on ``dev``."""
     if not pol.fused:
         raise NotImplementedError(
             f"policy {pol.spec!r}: the phase-split '+unfused' pipeline "
@@ -78,9 +88,6 @@ def _executor(pol: PrecisionPolicy, dev: torch.device):
         raise ValueError(
             f"policy {pol.spec!r} on {dev}: the port runs the kernels on CUDA "
             "tensors and their plain versions ('+interpret') on CPU tensors")
-    from repro_torch.kernels.fused import ozmm_pallas_fused  # lazy: core <- kernels
-
-    return functools.partial(ozmm_pallas_fused, **kw), "pallas"
 
 
 def _batched(fn, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -127,7 +134,8 @@ def ozmm(a, b, policy=None, *, device=None) -> torch.Tensor:
     ``"ozaki2-fp8/fast@8"``, or None: then the precision context decides,
     falling back to the paper's flagship ``ozaki2-fp8/accurate``. Either
     side may be a prepared ``QuantizedMatrix`` (2-D only); then the plan is
-    the spec, and the pairing runs on the plan's device on the core path.
+    the spec, and the pairing runs on the plan's device, on the route the
+    policy's backend resolves to there.
     """
     pol = resolve_policy(policy, fallback=OZMM_DEFAULT_POLICY)
     if isinstance(a, QuantizedMatrix) or isinstance(b, QuantizedMatrix):
@@ -143,19 +151,21 @@ def ozmm(a, b, policy=None, *, device=None) -> torch.Tensor:
 
 def _ozmm_prepared_mixed(a, b, pol: PrecisionPolicy) -> torch.Tensor:
     """Execute with >= 1 prepared operand, quantizing the raw side on the
-    fly on the plan's device. Prepared operands run on the core path: the
-    kernel that streams cached parts (``ozmm_fused_parts``) is not ported."""
-    if pol.backend == "pallas":
-        raise NotImplementedError(
-            f"policy {pol.spec!r}: prepared operands on the kernel route need "
-            "ozmm_fused_parts, which is not ported yet (ROADMAP B5)")
+    fly on the plan's device. When the policy's backend resolves to the
+    kernel route there, the pairing runs on the fused kernels
+    (``ozmm_pallas_fused_prepared``); otherwise on the core path."""
     anchor = a if isinstance(a, QuantizedMatrix) else b
     ms, dev = anchor.ms, anchor.device
     qa = a if isinstance(a, QuantizedMatrix) else quantize_matrix(
         _as_f64(a, dev), "lhs", ms, mode=anchor.mode)
     qb = b if isinstance(b, QuantizedMatrix) else quantize_matrix(
         _as_f64(b, dev), "rhs", ms, mode=anchor.mode)
-    return ozmm_prepared(qa, qb)
+    if _resolve_backend(pol, dev) == "core":
+        return ozmm_prepared(qa, qb)
+    _check_kernel_route(pol, dev)
+    from repro_torch.kernels.fused import ozmm_pallas_fused_prepared  # lazy
+
+    return ozmm_pallas_fused_prepared(qa, qb)
 
 
 def _check_plan_matches_policy(q: QuantizedMatrix, pol: PrecisionPolicy) -> None:

@@ -70,6 +70,11 @@ class QuantizedMatrix:
         return tuple(self.parts[0][0].shape)  # residue parts mirror the operand
 
     @property
+    def contract_dim(self) -> int:
+        """Length of the contraction axis (k of the pairing GEMM)."""
+        return self.shape[1] if self.role == "lhs" else self.shape[0]
+
+    @property
     def device(self) -> torch.device:
         return (self.x if self.x is not None else self.parts[0][0]).device
 

@@ -9,18 +9,16 @@
 //   eq. (8)/(12) products (or the single int8 product) -> combine -> balanced
 //   Garner digits -> Kahan f64 sum -> ldexp_wide -> C.
 //
-// Schedule. One block of 8 warps per 64 x 64 output tile; each warp owns a
-// 32 x 16 sub-tile (2 x 2 mma tiles of m16n8). The TPU schedule keeps 3N int32
-// accumulator tiles resident (2.25 MiB at N = 12), which no SM holds, so the
-// moduli run in the OUTER loop: for each modulus the block walks k in steps
-// of 64, rebuilds the residue parts of its A and B k-tiles in shared memory
-// (B stored k-contiguous per column for the .col operand), runs the products
-// with 3 (fp8) or 1 (int8) int32 accumulators in registers, and at the end of
-// k reduces them to one centred int16 residue tile in shared memory
-// (N x 64 x 64 x 2 B, 96 KiB at N = 12). After the last modulus every thread
-// runs Garner, the Kahan sum and ldexp_wide on its elements and writes f64.
-// Every digit plane is an exact integer, so any schedule gives the bits of
-// the reference (docs/kernels.md, "Garner accumulation").
+// Schedule (fused_common.cuh, shared with K2 = fused_parts.cu): one block of
+// 8 warps per 64 x 64 output tile, the moduli in the OUTER loop, since the
+// TPU schedule's 3N resident int32 accumulator tiles (2.25 MiB at N = 12)
+// fit no SM. Here, for each modulus the block walks k in steps of 64 and
+// rebuilds the residue parts of its A and B k-tiles in shared memory (B
+// stored k-contiguous per column for the .col operand); the products, the
+// per-modulus int16 residue tile (N x 64 x 64 x 2 B, 96 KiB at N = 12) and
+// the Garner / Kahan / ldexp_wide epilogue are the shared code. Every digit
+// plane is an exact integer, so any schedule gives the bits of the
+// reference (docs/kernels.md, "Garner accumulation").
 //
 // Exactness. FP8 products use mma.sync m16n8k32 e4m3 with f32 accumulation,
 // each k32 step started from a ZERO fragment, converted with __float2int_rn
@@ -47,31 +45,14 @@
 
 #include <cstdint>
 
-#include "ozaki_int.cuh"
+#include "fused_common.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 64;  // KERNEL_TILE in kernels/fused/kernel.py
-constexpr int THREADS = 256;              // 8 warps: 2 along m x 4 along n
-constexpr int LDS = BK + 16;              // part row stride (bytes): conflict-free fragment loads
-constexpr int PART = 64 * LDS;            // one part buffer (BM == BN == 64 rows)
-constexpr int MAXN = 20;                  // MAX_MODULI in kernels/fused/kernel.py
-constexpr int TABLE_LEN = 1024;           // moduli.POW2_TABLE_LEN
-constexpr int MANT_SPLIT = 26;
-constexpr int KIND_SQUARE = 0, KIND_KARATSUBA = 1, KIND_INT8 = 2;
+using namespace fused;
 
-// Moduli constants, passed by value (__grid_constant__) and copied to shared
-// memory for dynamic indexing.
-struct Moduli {
-  int n;
-  int ps[MAXN];           // selection order
-  int split_s[MAXN];
-  int kind[MAXN];
-  int radix_order[MAXN];  // Garner digit i reads the residue of ps[radix_order[i]]
-  int radix_ps[MAXN];
-  int inv[MAXN * MAXN];   // inv[j * MAXN + i] = radix_ps[j]^-1 mod radix_ps[i]
-  double w[MAXN];         // radix weights, float64
-};
+constexpr int TABLE_LEN = 1024;  // moduli.POW2_TABLE_LEN
+constexpr int MANT_SPLIT = 26;
 
 // Centred residue mod p of trunc(2^sc * (mh*2^26 + ml)) (_residue_tile):
 // negative sc truncates by shifts of the magnitudes, the high-limb shift
@@ -115,70 +96,20 @@ __device__ __forceinline__ void store_parts(uint8_t* dst, int r, int s) {
   }
 }
 
-__device__ __forceinline__ void mma_e4m3(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2], const float (&c)[4]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
-
-// The kernel's k32 FP8 step (_dot_i32): product from a zero fragment,
-// converted to int32 and added to the accumulators.
-__device__ __forceinline__ void mma_k32_exact(int (&acc)[4], const uint32_t (&a)[4],
-                                              const uint32_t (&b)[2]) {
-  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
-  float d[4];
-  mma_e4m3(d, a, b, zero);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) acc[q] += __float2int_rn(d[q]);
-}
-
-__device__ __forceinline__ void mma_s8(int (&acc)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// m16n8k32 fragments (8-bit A row-major, B column-major): lane = 4*g + t holds
-// A rows g and g+8, k bytes 4t..4t+3 and 16+4t..; B column g, the same k bytes.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint8_t* base, int lane) {
-  const uint8_t* p0 = base + (lane >> 2) * LDS + (lane & 3) * 4;
-  const uint8_t* p1 = p0 + 8 * LDS;
-  a[0] = *reinterpret_cast<const uint32_t*>(p0);
-  a[1] = *reinterpret_cast<const uint32_t*>(p1);
-  a[2] = *reinterpret_cast<const uint32_t*>(p0 + 16);
-  a[3] = *reinterpret_cast<const uint32_t*>(p1 + 16);
-}
-
-__device__ __forceinline__ void load_b(uint32_t (&b)[2], const uint8_t* base, int lane) {
-  const uint8_t* p = base + (lane >> 2) * LDS + (lane & 3) * 4;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 16);
-}
-
 struct Operands {
   const int* mh_a; const int* ml_a; const int* e_a; const int* lmu;
   const int* mh_b; const int* ml_b; const int* e_b; const int* lnu;
   int k, n;  // contraction length, columns of B / C
 };
 
-// One modulus over the whole contraction: products into registers, then the
-// centred residue of the tile's product into res (BM x BN int16).
+// One modulus over the whole contraction: residue parts of each k-tile built
+// in shared memory, products into registers, then the centred residue of the
+// tile's product into res (BM x BN int16).
 template <int KIND>
 __device__ __forceinline__ void modulus_pass(const Operands& op, int row0, int col0, int p,
                                              int s, const int* tbl_s, uint8_t* a_s,
                                              uint8_t* b_s, int16_t* res) {
-  constexpr int NP = KIND == KIND_KARATSUBA ? 3 : (KIND == KIND_SQUARE ? 2 : 1);
-  constexpr int NACC = KIND == KIND_INT8 ? 1 : 3;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 16;
-  int acc[NACC][2][2][4] = {};
-
+  int acc[kAccs<KIND>][2][2][4] = {};
   for (int k0 = 0; k0 < op.k; k0 += BK) {
     __syncthreads();  // the table is loaded; the previous k-tile's parts are consumed
     for (int i = threadIdx.x; i < BM * BK; i += THREADS) {
@@ -194,56 +125,9 @@ __device__ __forceinline__ void modulus_pass(const Operands& op, int row0, int c
       store_parts<KIND>(b_s + c * LDS + kk, x, s);
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[NP][2][4], bf[NP][2][2];
-#pragma unroll
-      for (int q = 0; q < NP; ++q) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          load_a(af[q][i], a_s + q * PART + (wm + 16 * i) * LDS + kk, lane);
-          load_b(bf[q][i], b_s + q * PART + (wn + 8 * i) * LDS + kk, lane);
-        }
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni) {
-          if constexpr (KIND == KIND_INT8) {
-            mma_s8(acc[0][mi][ni], af[0][mi], bf[0][ni]);
-          } else if constexpr (KIND == KIND_SQUARE) {  // eq. (12): A1B2, A2B1, A2B2
-            mma_k32_exact(acc[0][mi][ni], af[0][mi], bf[1][ni]);
-            mma_k32_exact(acc[1][mi][ni], af[1][mi], bf[0][ni]);
-            mma_k32_exact(acc[2][mi][ni], af[1][mi], bf[1][ni]);
-          } else {  // eq. (8): A1B1, A2B2, (A1+A2)(B1+B2)
-#pragma unroll
-            for (int q = 0; q < 3; ++q) mma_k32_exact(acc[q][mi][ni], af[q][mi], bf[q][ni]);
-          }
-        }
-      }
-    }
+    mma_tile<KIND>(acc, a_s, b_s);
   }
-
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int row = wm + 16 * mi + g + 8 * (q >> 1);
-        const int col = wn + 8 * ni + 2 * t + (q & 1);
-        int c;
-        if constexpr (KIND == KIND_INT8) {
-          c = ozaki::cmod(acc[0][mi][ni][q], p);
-        } else {
-          c = ozaki::combine(acc[0][mi][ni][q], acc[1][mi][ni][q], acc[2][mi][ni][q], p,
-                             KIND == KIND_SQUARE, s);
-        }
-        res[row * BN + col] = static_cast<int16_t>(c);
-      }
-    }
-  }
+  store_residue<KIND>(acc, p, s, res);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -251,12 +135,7 @@ fused_raw_kernel(Operands op, const int* __restrict__ tbl, double* __restrict__ 
                  const __grid_constant__ Moduli mod) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ Moduli M;
-  {
-    const int* src = reinterpret_cast<const int*>(&mod);
-    int* dst = reinterpret_cast<int*>(&M);
-    for (int i = threadIdx.x; i < static_cast<int>(sizeof(Moduli) / sizeof(int)); i += THREADS)
-      dst[i] = src[i];
-  }
+  copy_moduli(M, mod);
   __syncthreads();
   const int n_mod = M.n;
   int16_t* res_s = reinterpret_cast<int16_t*>(smem);                      // [N][BM][BN]
@@ -282,24 +161,7 @@ fused_raw_kernel(Operands op, const int* __restrict__ tbl, double* __restrict__ 
   }
   __syncthreads();
 
-  // Garner digits, Kahan f64 sum in radix order, ldexp_wide (_finalize).
-  for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-    const int r = i / BN, c = i % BN;
-    int digits[MAXN];
-    for (int d = 0; d < n_mod; ++d) {
-      digits[d] = ozaki::garner_digit(res_s[M.radix_order[d] * BM * BN + i], M.radix_ps[d],
-                                      digits, &M.inv[d], MAXN, d);
-    }
-    double sum = __dmul_rn(static_cast<double>(digits[0]), 0.0), comp = sum;
-    for (int d = 0; d < n_mod; ++d) {
-      const double term = __fma_rn(static_cast<double>(digits[d]), M.w[d], -comp);
-      const double next = __dadd_rn(sum, term);
-      comp = __dsub_rn(__dsub_rn(next, sum), term);
-      sum = next;
-    }
-    out[static_cast<size_t>(row0 + r) * op.n + col0 + c] =
-        ozaki::ldexp_wide(sum, -(op.lmu[row0 + r] + op.lnu[col0 + c]));
-  }
+  finalize(M, res_s, op.lmu, op.lnu, out, row0, col0, op.n);
 }
 
 __global__ void mma_probe_kernel(const uint8_t* a, const uint8_t* bt, int k, int* exact,
@@ -331,18 +193,6 @@ __global__ void mma_probe_kernel(const uint8_t* a, const uint8_t* bt, int k, int
   }
 }
 
-// Runs fn with `device` current and restores the caller's device after.
-template <typename Fn>
-int on_device(int device, Fn fn) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = fn();
-  if (prev != device) cudaSetDevice(prev);
-  return static_cast<int>(err);
-}
-
 }  // namespace
 
 extern "C" {
@@ -361,17 +211,8 @@ int ozmm_fused_raw_launch(const int* mh_a, const int* ml_a, const int* e_a, cons
   if (num_moduli < 1 || num_moduli > MAXN || m <= 0 || n <= 0 || k <= 0 || m % BM ||
       n % BN || k % BK || m / BM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  Moduli mod{};
-  mod.n = num_moduli;
-  for (int i = 0; i < num_moduli; ++i) {
-    mod.ps[i] = ps[i];
-    mod.split_s[i] = split_s[i];
-    mod.kind[i] = kind[i];
-    mod.radix_order[i] = radix_order[i];
-    mod.radix_ps[i] = radix_ps[i];
-    mod.w[i] = weights[i];
-    for (int j = 0; j < num_moduli; ++j) mod.inv[j * MAXN + i] = inv[j * num_moduli + i];
-  }
+  const Moduli mod =
+      make_moduli(num_moduli, ps, split_s, kind, radix_order, radix_ps, inv, weights);
   const Operands op{mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, k, n};
   const size_t smem = static_cast<size_t>(num_moduli) * BM * BN * sizeof(int16_t) +
                       TABLE_LEN * sizeof(int) + 6 * PART;

@@ -1,12 +1,12 @@
-"""Build a CUDA source of ``repro_torch/csrc`` into a shared library with a
-plain C interface and load it with ``ctypes``.
+"""Build the CUDA sources of ``repro_torch/csrc`` into shared libraries with a
+plain C interface and load them with ``ctypes``.
 
 ``nvcc`` compiles for ``sm_90a`` at first use, into a directory keyed by a
 hash of the sources and flags, so a changed source is never served a stale
-library. The directory is ``$REPRO_TORCH_BUILD_DIR`` when set, else
-``repro_torch/_build`` beside the package (listed in ``.gitignore``). Each
-build leaves ``<name>.log`` beside the library, with ptxas's register,
-shared-memory and spill report.
+library; ``build_all`` runs one nvcc per source, all at once. The directory
+is ``$REPRO_TORCH_BUILD_DIR`` when set, else ``repro_torch/_build`` beside
+the package (listed in ``.gitignore``). Each build leaves ``<name>.log``
+beside the library, with ptxas's register, shared-memory and spill report.
 """
 from __future__ import annotations
 
@@ -54,18 +54,34 @@ def library_path(source: str) -> Path:
     return build_dir() / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Build ``csrc/<source>`` unless a library of the same sources exists,
-    then load it. Raises RuntimeError with nvcc's output if the build fails."""
-    out = library_path(source)
-    if not out.exists():
+def build_all(sources) -> None:
+    """Build each ``csrc/<source>`` whose library is missing, one nvcc each,
+    all started together. Raises RuntimeError with nvcc's output if any
+    build fails."""
+    jobs = []
+    for source in dict.fromkeys(sources):
+        out = library_path(source)
+        if out.exists():
+            continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        jobs.append((source, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for source, out, tmp, proc in jobs:
+        log = proc.communicate()[0]
+        out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) building {source}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return ctypes.CDLL(str(out))
+            failed.append(f"nvcc failed ({proc.returncode}) building {source}:\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Build ``csrc/<source>`` unless a library of the same sources exists,
+    then load it. Raises RuntimeError with nvcc's output if the build fails."""
+    build_all([source])
+    return ctypes.CDLL(str(library_path(source)))

@@ -1,18 +1,24 @@
-"""The fused raw-frame emulated GEMM: wrapper of the hand-written Hopper kernel
-``csrc/fused_raw.cu``, which replaces ``repro/kernels/fused/kernel.py::
-ozmm_fused_raw`` (body ``_kernel_raw``), and its plain PyTorch version.
+"""The fused emulated GEMM kernels: wrappers of the hand-written Hopper kernels
+``csrc/fused_raw.cu`` (K1) and ``csrc/fused_parts.cu`` (K2), which replace
+``repro/kernels/fused/kernel.py::ozmm_fused_raw`` (body ``_kernel_raw``) and
+``::ozmm_fused_parts`` (bodies ``_kernel_parts_fp8``/``_kernel_parts_int8``),
+and their plain PyTorch versions.
 
 ``ozmm_fused_raw`` takes both operands as sign-folded two-limb raw frames
 x = (mh*2^26 + ml) * 2^e (``ops.decompose_raw``), the pairing exponents
 lmu (m, 1) / lnu (1, n) and the 2^e-mod-p tables, and returns the f64
 product: on-chip residues, e4m3 split (or int8), the eq. (8)/(12) products
 (or the single int8 product), combine, balanced Garner digits, Kahan f64 sum
-and ``ldexp_wide``, all in one launch.
+and ``ldexp_wide``, all in one launch. ``ozmm_fused_parts`` takes the
+residue parts of two fast-mode plans instead, stacked by
+``kernels.common.stack_parts`` ((hi, lo, hs) e4m3 stacks (N, m, k) /
+(N, k, n), or one int8 stack each), and runs the same products and
+epilogue.
 
 A CUDA tensor goes to the kernel or raises; only CPU tensors take the plain
-version ``ozmm_fused_raw_ref``, the port's counterpart of the Pallas
-interpreter. ``ozmm_fused_raw.launches`` counts kernel launches and
-``ozmm_fused_raw_ref.calls`` plain-version calls.
+versions ``ozmm_fused_raw_ref`` / ``ozmm_fused_parts_ref``, the port's
+counterparts of the Pallas interpreter. ``<wrapper>.launches`` counts
+kernel launches and ``<plain version>.calls`` plain-version calls.
 """
 from __future__ import annotations
 
@@ -30,9 +36,9 @@ from ..build import load_library
 
 MANT_SPLIT = 26  # raw frame: mant = mh * 2^26 + ml (ops.decompose_raw)
 
-#: (BM, BN, BK) compiled into csrc/fused_raw.cu; operands arrive padded to it.
+#: (BM, BN, BK) compiled into csrc/fused_common.cuh; operands arrive padded to it.
 KERNEL_TILE = (64, 64, 64)
-#: MAXN in csrc/fused_raw.cu: N int16 residue tiles of BM x BN sit in
+#: MAXN in csrc/fused_common.cuh: N int16 residue tiles of BM x BN sit in
 #: shared memory (8 KiB each) beside the part and table buffers.
 MAX_MODULI = 20
 #: Largest contraction the int32 arithmetic keeps exact: the square-modulus
@@ -87,21 +93,63 @@ def ozmm_fused_raw_ref(mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl, *,
 ozmm_fused_raw_ref.calls = 0
 
 
+def _unstack(stacks, ms: ModuliSet) -> list[tuple]:
+    """Stacked parts -> the core plan's per-modulus part tuples (a square
+    modulus has no hs part)."""
+    if ms.family == "int8":
+        return [(stacks[l],) for l in range(ms.n)]
+    hi, lo, hs = stacks
+    return [(hi[l], lo[l]) if sq else (hi[l], lo[l], hs[l])
+            for l, sq in enumerate(ms.is_square)]
+
+
+def ozmm_fused_parts_ref(sa, sb, lmu, lnu, *, ms: ModuliSet) -> torch.Tensor:
+    """Plain PyTorch version of ``ozmm_fused_parts`` on whole matrices, on the
+    inputs' device: the core route's products over the unstacked parts,
+    combine, Garner digits and Kahan sum, so it equals ``ozmm_prepared`` by
+    construction."""
+    ozmm_fused_parts_ref.calls += 1
+    cs = residue_products(_unstack(sa, ms), _unstack(sb, ms), ms)
+    return crt.reconstruct(crt.garner_digits(cs, ms), ms, lmu[:, 0], lnu[0])
+
+
+ozmm_fused_parts_ref.calls = 0
+
+
 # ---------------------------------------------------------------------------
 # Kernel
 # ---------------------------------------------------------------------------
 
-@functools.cache
-def _load() -> ctypes.CDLL:
-    lib = load_library("fused_raw.cu")
+#: The CUDA sources of the two kernels, built by ``build.load_library``.
+SOURCES = ("fused_raw.cu", "fused_parts.cu")
+
+
+def _bind(source: str, launch: str, n_ptr: int) -> ctypes.CDLL:
+    """Load the library of ``csrc/<source>`` and type its launch entry:
+    ``n_ptr`` device pointers, then m, n, k, num_moduli and the device, then
+    the 7 moduli arrays and the stream."""
+    lib = load_library(source)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ozmm_fused_raw_launch.argtypes = [ptr] * 10 + [i32] * 5 + [ptr] * 8
-    lib.ozmm_fused_raw_launch.restype = i32
-    lib.mma_probe_launch.argtypes = [ptr, ptr, i32, ptr, ptr, i32, ptr]
-    lib.mma_probe_launch.restype = i32
+    fn = getattr(lib, launch)
+    fn.argtypes = [ptr] * n_ptr + [i32] * 5 + [ptr] * 8
+    fn.restype = i32
     lib.cuda_error_string.argtypes = [i32]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
+    lib = _bind("fused_raw.cu", "ozmm_fused_raw_launch", 10)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.mma_probe_launch.argtypes = [ptr, ptr, i32, ptr, ptr, i32, ptr]
+    lib.mma_probe_launch.restype = i32
+    return lib
+
+
+@functools.cache
+def _load_parts() -> ctypes.CDLL:
+    return _bind("fused_parts.cu", "ozmm_fused_parts_launch", 9)
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,30 +167,44 @@ def _host_consts(ms: ModuliSet) -> tuple[np.ndarray, ...]:
             np.ascontiguousarray(ms.radix_weights_f64, dtype=np.float64))
 
 
-def _check_inputs(args, ms: ModuliSet) -> torch.device:
-    mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl = args
-    m, k = mh_a.shape
-    n = mh_b.shape[1]
-    want = [(m, k)] * 3 + [(m, 1)] + [(k, n)] * 3 + [(1, n), (ms.n, POW2_TABLE_LEN)]
-    for name, t, shape in zip(("mh_a", "ml_a", "e_a", "lmu", "mh_b", "ml_b",
-                               "e_b", "lnu", "tbl"), args, want):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"ozmm_fused_raw: {name} must be a contiguous int32 "
+def _check_inputs(kernel: str, named, m: int, n: int, k: int,
+                  ms: ModuliSet) -> torch.device:
+    """Raise unless every (name, tensor, dtype, shape) of ``named`` matches and
+    (m, n, k, N) is what the kernel takes; return the one device."""
+    for name, t, dtype, shape in named:
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            want = str(dtype).removeprefix("torch.")
+            raise ValueError(f"{kernel}: {name} must be a contiguous {want} "
                              f"tensor of shape {shape}, got {t.dtype} "
                              f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
     if any(d % b for d, b in zip((m, n, k), KERNEL_TILE)):
-        raise ValueError(f"ozmm_fused_raw: (m, n, k) = {(m, n, k)} must be "
+        raise ValueError(f"{kernel}: (m, n, k) = {(m, n, k)} must be "
                          f"multiples of the kernel tile {KERNEL_TILE} (ops pads)")
     if k > MAX_K:
-        raise ValueError(f"ozmm_fused_raw: k = {k} exceeds {MAX_K}, beyond "
+        raise ValueError(f"{kernel}: k = {k} exceeds {MAX_K}, beyond "
                          "which the int32 residue products are not exact")
     if ms.n > MAX_MODULI:
-        raise ValueError(f"ozmm_fused_raw: {ms.n} moduli exceed the kernel's "
+        raise ValueError(f"{kernel}: {ms.n} moduli exceed the kernel's "
                          f"{MAX_MODULI} shared-memory residue tiles")
-    devices = {t.device for t in args}
+    devices = {t.device for _, t, _, _ in named}
     if len(devices) != 1:
-        raise ValueError(f"ozmm_fused_raw: inputs on several devices {devices}")
-    return devices.pop()
+        raise ValueError(f"{kernel}: inputs on several devices {devices}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel} runs on CUDA or CPU tensors, got {dev}")
+    return dev
+
+
+def _raise_on_error(kernel: str, lib: ctypes.CDLL, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{kernel}: launch failed with CUDA error {err} "
+                           f"({lib.cuda_error_string(err).decode()})")
+
+
+def _launch_tail(ms: ModuliSet, dev: torch.device) -> tuple:
+    """The moduli arrays and the stream, the last arguments of a launch."""
+    return (*(c.ctypes.data for c in _host_consts(ms)),
+            torch.cuda.current_stream(dev).cuda_stream)
 
 
 def ozmm_fused_raw(mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl, *,
@@ -150,27 +212,59 @@ def ozmm_fused_raw(mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl, *,
     """Fused emulated GEMM from raw frames, (m, n) float64. CUDA tensors run
     the kernel (or raise); CPU tensors run ``ozmm_fused_raw_ref``."""
     args = (mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl)
-    dev = _check_inputs(args, ms)
-    if dev.type == "cpu":
-        return ozmm_fused_raw_ref(*args, ms=ms)
-    if dev.type != "cuda":
-        raise ValueError(f"ozmm_fused_raw runs on CUDA or CPU tensors, got {dev}")
-    lib = _load()
     m, k = mh_a.shape
     n = mh_b.shape[1]
+    shapes = [(m, k)] * 3 + [(m, 1)] + [(k, n)] * 3 + [(1, n), (ms.n, POW2_TABLE_LEN)]
+    names = ("mh_a", "ml_a", "e_a", "lmu", "mh_b", "ml_b", "e_b", "lnu", "tbl")
+    dev = _check_inputs("ozmm_fused_raw",
+                        [(nm, t, torch.int32, sh) for nm, t, sh in zip(names, args, shapes)],
+                        m, n, k, ms)
+    if dev.type == "cpu":
+        return ozmm_fused_raw_ref(*args, ms=ms)
+    lib = _load()
     out = torch.empty((m, n), dtype=torch.float64, device=dev)
-    consts = _host_consts(ms)
-    err = lib.ozmm_fused_raw_launch(
-        *(t.data_ptr() for t in args), out.data_ptr(), m, n, k, ms.n, dev.index,
-        *(c.ctypes.data for c in consts), torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"ozmm_fused_raw: launch failed with CUDA error {err} "
-                           f"({lib.cuda_error_string(err).decode()})")
+    err = lib.ozmm_fused_raw_launch(*(t.data_ptr() for t in args), out.data_ptr(),
+                                    m, n, k, ms.n, dev.index, *_launch_tail(ms, dev))
+    _raise_on_error("ozmm_fused_raw", lib, err)
     ozmm_fused_raw.launches += 1
     return out
 
 
 ozmm_fused_raw.launches = 0
+
+
+def ozmm_fused_parts(sa, sb, lmu, lnu, *, ms: ModuliSet) -> torch.Tensor:
+    """Fused emulated GEMM from stacked residue parts (``stack_parts``
+    layout: (hi, lo, hs) e4m3 stacks (N, m, k) / (N, k, n) for the fp8
+    families, one int8 stack each for int8), lmu (m, 1) and lnu (1, n)
+    int32; (m, n) float64. CUDA tensors run the kernel (or raise); CPU
+    tensors run ``ozmm_fused_parts_ref``."""
+    int8 = ms.family == "int8"
+    parts_a, parts_b = ((sa,), (sb,)) if int8 else (tuple(sa), tuple(sb))
+    m, k = parts_a[0].shape[1:]
+    n = parts_b[0].shape[2]
+    dtype = torch.int8 if int8 else numerics.E4M3
+    named = ([(f"sa[{i}]", t, dtype, (ms.n, m, k)) for i, t in enumerate(parts_a)]
+             + [(f"sb[{i}]", t, dtype, (ms.n, k, n)) for i, t in enumerate(parts_b)]
+             + [("lmu", lmu, torch.int32, (m, 1)), ("lnu", lnu, torch.int32, (1, n))])
+    dev = _check_inputs("ozmm_fused_parts", named, m, n, k, ms)
+    if dev.type == "cpu":
+        return ozmm_fused_parts_ref(sa, sb, lmu, lnu, ms=ms)
+    if any(t.data_ptr() % 16 for t in parts_a + parts_b):
+        raise ValueError("ozmm_fused_parts: the part stacks must be 16-byte aligned")
+    lib = _load_parts()
+    out = torch.empty((m, n), dtype=torch.float64, device=dev)
+    ptrs_a = [t.data_ptr() for t in parts_a] + [None] * (3 - len(parts_a))
+    ptrs_b = [t.data_ptr() for t in parts_b] + [None] * (3 - len(parts_b))
+    err = lib.ozmm_fused_parts_launch(*ptrs_a, *ptrs_b, lmu.data_ptr(), lnu.data_ptr(),
+                                      out.data_ptr(), m, n, k, ms.n, dev.index,
+                                      *_launch_tail(ms, dev))
+    _raise_on_error("ozmm_fused_parts", lib, err)
+    ozmm_fused_parts.launches += 1
+    return out
+
+
+ozmm_fused_parts.launches = 0
 
 
 def mma_probe(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -191,7 +285,5 @@ def mma_probe(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     err = lib.mma_probe_launch(a.data_ptr(), bt.data_ptr(), k, exact.data_ptr(),
                                chained.data_ptr(), a.device.index,
                                torch.cuda.current_stream(a.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"mma_probe: launch failed with CUDA error {err} "
-                           f"({lib.cuda_error_string(err).decode()})")
+    _raise_on_error("mma_probe", lib, err)
     return exact, chained

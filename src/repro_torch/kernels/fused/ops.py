@@ -1,7 +1,10 @@
 """Host side of the fused emulated GEMM (the torch counterpart of
 ``repro/kernels/fused/ops.py``): scaling and the raw-frame decomposition in
 plain PyTorch, zero padding to the kernel tile, one ``ozmm_fused_raw``
-launch, crop.
+launch, crop. Prepared pairings (``ozmm_pallas_fused_prepared``) stream a
+fast-mode plan's cached parts through one ``ozmm_fused_parts`` launch, and
+run an accurate-mode pairing on ``ozmm_fused_raw`` under the exponents of
+its bound GEMM.
 
 Padding is exactness-preserving: a zero element decomposes to an all-zero
 raw frame, whose residues and parts are 0 for every modulus, so padded
@@ -16,10 +19,10 @@ import torch.nn.functional as F
 
 from repro_torch.core import scaling
 from repro_torch.core.moduli import DEFAULT_NUM_MODULI, ModuliSet, make_moduli_set
-from repro_torch.core.plan import pow2_tables
+from repro_torch.core.plan import QuantizedMatrix, pair_exponents, pow2_tables
 
-from ..common import resolve_reconstruct
-from .kernel import KERNEL_TILE, MANT_SPLIT, ozmm_fused_raw
+from ..common import resolve_reconstruct, stack_parts
+from .kernel import KERNEL_TILE, MANT_SPLIT, ozmm_fused_parts, ozmm_fused_raw
 
 #: Env override of the padding tile: "bm,bn,bk" (the ``blocks=`` kwarg wins
 #: over the env, the env over the table).
@@ -68,6 +71,15 @@ def _pad2(x: torch.Tensor, m0: int, m1: int) -> torch.Tensor:
     return F.pad(x, (0, p1, 0, p0)) if (p0 or p1) else x.contiguous()
 
 
+def _pad3(x: torch.Tensor, m1: int, m2: int) -> torch.Tensor:
+    """Zero-pad the last two axes of a 1-byte part stack (e4m3 or int8),
+    through its uint8 view: the zero byte is +0 in both types."""
+    p1, p2 = (-x.shape[1]) % m1, (-x.shape[2]) % m2
+    if not (p1 or p2):
+        return x.contiguous()
+    return F.pad(x.view(torch.uint8), (0, p2, 0, p1)).view(x.dtype)
+
+
 def fused_raw_args(a, lmu, b, lnu, ms: ModuliSet, blocks) -> tuple[torch.Tensor, ...]:
     """The padded inputs of ``ozmm_fused_raw`` for f64 ``a``, ``b`` and the
     pairing exponents ``lmu`` (m,), ``lnu`` (n,)."""
@@ -76,6 +88,33 @@ def fused_raw_args(a, lmu, b, lnu, ms: ModuliSet, blocks) -> tuple[torch.Tensor,
     fb = tuple(_pad2(v, bk, bn) for v in decompose_raw(b))
     return (*fa, _pad2(lmu[:, None], bm, 1), *fb, _pad2(lnu[None, :], 1, bn),
             pow2_tables(ms, a.device))
+
+
+def fused_parts_args(sa, lmu, sb, lnu, ms: ModuliSet, blocks) -> tuple:
+    """The padded inputs of ``ozmm_fused_parts`` for the stacked parts
+    ``sa`` / ``sb`` (``stack_parts``) and the pairing exponents ``lmu`` (m,),
+    ``lnu`` (n,)."""
+    bm, bn, bk = blocks
+    if ms.family == "int8":
+        pa, pb = _pad3(sa, bm, bk), _pad3(sb, bk, bn)
+    else:
+        pa = tuple(_pad3(v, bm, bk) for v in sa)
+        pb = tuple(_pad3(v, bk, bn) for v in sb)
+    return pa, pb, _pad2(lmu[:, None], bm, 1), _pad2(lnu[None, :], 1, bn)
+
+
+def _fused_from_frames(a, lmu, b, lnu, *, ms: ModuliSet, blocks) -> torch.Tensor:
+    """Raw-frame path: decompose both operands, pad, one ``ozmm_fused_raw``
+    launch, crop."""
+    args = fused_raw_args(a, lmu, b, lnu, ms, blocks)
+    return ozmm_fused_raw(*args, ms=ms)[:a.shape[0], :b.shape[1]]
+
+
+def _fused_from_parts(sa, lmu, sb, lnu, *, ms: ModuliSet, blocks) -> torch.Tensor:
+    """Prepared fast-mode path: the cached part stacks, padded, through one
+    ``ozmm_fused_parts`` launch, crop."""
+    m, n = lmu.shape[0], lnu.shape[0]
+    return ozmm_fused_parts(*fused_parts_args(sa, lmu, sb, lnu, ms, blocks), ms=ms)[:m, :n]
 
 
 def ozmm_pallas_fused(a: torch.Tensor, b: torch.Tensor, *, family: str = "fp8-hybrid",
@@ -92,5 +131,27 @@ def ozmm_pallas_fused(a: torch.Tensor, b: torch.Tensor, *, family: str = "fp8-hy
     a = a.to(torch.float64)
     b = b.to(torch.float64)
     scal = scaling.compute_scaling(a, b, ms, mode)
-    args = fused_raw_args(a, scal.lmu, b, scal.lnu, ms, select_blocks(a.device.type, blocks))
-    return ozmm_fused_raw(*args, ms=ms)[:a.shape[0], :b.shape[1]]
+    return _fused_from_frames(a, scal.lmu, b, scal.lnu, ms=ms,
+                              blocks=select_blocks(a.device.type, blocks))
+
+
+def ozmm_pallas_fused_prepared(qa: QuantizedMatrix, qb: QuantizedMatrix, *,
+                               reconstruct: str | None = None, blocks=None) -> torch.Tensor:
+    """Execute a prepared pairing (core.plan) on the fused kernels, on the
+    plans' device (the name is the reference's).
+
+    Fast mode streams the plans' cached residue parts through
+    ``ozmm_fused_parts`` without re-quantizing. Accurate mode derives the
+    pairing exponents from the cached casts (``pair_exponents``: the bound
+    GEMM, an f32 ``torch.matmul`` outside any kernel) and runs the raw-frame
+    kernel ``ozmm_fused_raw``, which quantizes on chip under them. Bitwise
+    equal to ``ozmm_prepared`` in both modes.
+    """
+    resolve_reconstruct(reconstruct)
+    ms = qa.ms
+    blocks = select_blocks(qa.device.type, blocks)
+    lmu, lnu = pair_exponents(qa, qb)
+    if qa.mode == "fast":
+        return _fused_from_parts(stack_parts(qa.parts, ms), lmu, stack_parts(qb.parts, ms),
+                                 lnu, ms=ms, blocks=blocks)
+    return _fused_from_frames(qa.x, lmu, qb.x, lnu, ms=ms, blocks=blocks)

@@ -96,6 +96,17 @@ class PrecisionPolicy:
         """Whether operands can be prepared once and reused (Ozaki-II only)."""
         return self.scheme in OZAKI2_FAMILY
 
+    @property
+    def plans_enabled(self) -> bool:
+        """Plan reuse both supported by the scheme AND allowed by the policy
+        (``cache_plans``): the predicate the linalg block caches gate on."""
+        return self.supports_plans and self.cache_plans
+
+    @property
+    def family(self) -> Optional[str]:
+        """Moduli family backing the scheme (None for native/ozaki1)."""
+        return OZAKI2_FAMILY.get(self.scheme)
+
     def moduli_set(self):
         if not self.supports_plans:
             raise ValueError(f"scheme {self.scheme!r} has no moduli set")
@@ -129,6 +140,17 @@ class PrecisionPolicy:
 
     def __str__(self) -> str:
         return self.spec
+
+    def resolve_for(self, a, b, target_rel_err: float, *, k: Optional[int] = None,
+                    spread_log2: Optional[float] = None) -> "PrecisionPolicy":
+        """Pick the smallest ``num_moduli`` predicted to meet
+        ``target_rel_err`` (in the |A||B|-normalized metric) for operands
+        ``a`` @ ``b``; see ``repro_torch.precision.resolve`` for the estimator."""
+        from .resolve import resolve_num_moduli
+
+        n = resolve_num_moduli(self, a, b, target_rel_err, k=k,
+                               spread_log2=spread_log2)
+        return dataclasses.replace(self, num_moduli=n)
 
 
 #: The context default when nothing was requested anywhere: plain matmul.

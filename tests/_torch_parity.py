@@ -6,6 +6,7 @@ JAX case costs a jit compile of ~5-10 s on a CPU; one file per family keeps
 every file short for the parallel test run.
 """
 import numpy as np
+import torch
 
 import jax.numpy as jnp
 
@@ -41,3 +42,12 @@ def assert_both_routes_match_reference(a, b, family: str, mode: str,
     fused = ozmm(a, b, spec + "+pallas", device="cpu")
     assert ozmm_fused_raw_ref.calls == calls + 1, "the kernel route skipped the plain version"
     np.testing.assert_array_equal(fused.numpy(), want)
+
+
+class FakeCudaTensor(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: enough to reach a kernel
+    wrapper's kernel branch without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)

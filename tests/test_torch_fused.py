@@ -22,6 +22,8 @@ from repro_torch.kernels.common import resolve_reconstruct
 from repro_torch.kernels.fused import kernel as fused_kernel
 from repro_torch.precision import parse_policy
 
+from _torch_parity import FakeCudaTensor
+
 
 def _t(x):
     return torch.from_numpy(np.array(x))
@@ -113,20 +115,11 @@ def _frames(rng, ms, m=64, k=64, n=64, blocks=fused.KERNEL_TILE):
     return fused.fused_raw_args(a, lmu, b, lnu, ms, blocks)
 
 
-class _FakeCudaTensor(torch.Tensor):
-    """A CPU tensor that reports a CUDA device: enough to reach the kernel
-    branch of the wrapper without a card."""
-
-    @property
-    def device(self):
-        return torch.device("cuda", 0)
-
-
 def test_cuda_tensor_without_kernel_raises(rng, monkeypatch):
     """A CUDA tensor goes to the kernel or raises; it never takes the plain
     version silently."""
     ms = make_moduli_set("fp8-hybrid", 4)
-    args = [t.as_subclass(_FakeCudaTensor) for t in _frames(rng, ms)]
+    args = [t.as_subclass(FakeCudaTensor) for t in _frames(rng, ms)]
 
     def no_library():
         raise RuntimeError("kernel library unavailable")

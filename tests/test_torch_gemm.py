@@ -141,8 +141,8 @@ def test_unported_routes_refuse(rng):
     with pytest.raises(ValueError, match="plain versions"):
         ozmm(a, a.T, "ozaki2-fp8/fast+pallas+compiled", device="cpu")
     qa = prepare_operand(a, "lhs", "ozaki2-fp8/fast@4", device="cpu")
-    with pytest.raises(NotImplementedError, match="ozmm_fused_parts"):
-        backend_matmul(qa, a.T, "ozaki2-fp8/fast@4+pallas")
+    with pytest.raises(NotImplementedError, match="unfused"):
+        backend_matmul(qa, a.T, "ozaki2-fp8/fast@4+pallas+unfused")
 
 
 def test_batched_numpy_and_router(rng):
