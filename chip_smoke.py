@@ -43,6 +43,21 @@ script exits non-zero without printing a result:
    (K2) and accurate (K1) mode; one Cholesky refine_solve of an SPD matrix at
    n = 2048 (SYRK's plan x plan tiles on K2), its K2 calls checked the same
    way.
+8. the phase-split '+pallas+unfused' pipeline: K6 (quant_residues), K3
+   (fp8_gemm), K4 (int8_gemm) and K5 (requant_garner) each bitwise against
+   its plain version at 1024^3, 1000x997x1003 and the main-path size (e4m3
+   as bytes), K3 also against torch._scaled_mm and K4 against torch._int_mm
+   (oracles the port never calls) where their shape rules allow; then the
+   path itself: ozmm(a, b, spec + "+pallas+unfused") at the main-path size
+   for the four policies, each launch count moving by the predicted amount
+   (K6 2, K3 3N or K4 N, K5 1 a call), bitwise equal to '+core' and to the
+   fused '+pallas' (K1), normwise error vs cuBLAS DGEMM <= 2^-44; prepared
+   pairings (fast, accurate) on '+pallas+unfused' against '+core'; lu_factor
+   + lu_solve at n = 1024 on '+pallas+unfused' against '+core'; timings
+   (median of 5 after a warm-up) of each kernel, its plain version, its
+   library call and its bound, and one ozmm call split into scaling,
+   scaled_int + decompose_int, K6, the K3/K4 total, K5 and the torch
+   epilogue.
 
 The last two lines are the card (nvidia-smi name, power limit) and
 {"ok": true, "device": {...}}; before them a {"kernels": [...]} line.
@@ -66,6 +81,7 @@ H100_BYTES_PER_S = 3.35e12
 H100_FP8_OPS_PER_S = 1.979e15
 POLICIES = ("ozaki2-fp8/fast", "ozaki2-fp8/accurate", "ozaki2-karatsuba/fast",
             "ozaki2-int8/fast")
+UNFUSED = "+pallas+unfused"
 #: Prepared (fast-mode) pairings run on K2.
 K2_POLICIES = ("ozaki2-fp8/fast", "ozaki2-karatsuba/fast", "ozaki2-int8/fast")
 HPL_POLICIES = ("native", "ozaki2-fp8/fast", "ozaki2-fp8/accurate")
@@ -251,6 +267,282 @@ def probe_operands(k: int, device):
     return f8(a), f8(b), torch.tensor(a) @ torch.tensor(b)
 
 
+class Swapped:
+    """Sets ``module.name`` to ``fn`` while in the block."""
+
+    def __init__(self, module, name: str, fn):
+        self.module, self.name, self.fn = module, name, fn
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.fn)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def as_bytes(t):
+    """e4m3 as its bit pattern, so that torch.equal compares bytes."""
+    import torch
+
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def max_abs_err(x, y) -> float:
+    """max |x - y| over float64 values (e4m3 through float32)."""
+    import torch
+
+    f64 = lambda t: (t.float() if t.dtype == torch.float8_e4m3fn else t).double()  # noqa: E731
+    return (f64(x) - f64(y)).abs().max().item()
+
+
+def unfused_phase(args, dev, gen) -> list[dict]:
+    """Phase 8 (module docstring): the phase-split pipeline's kernels K3-K6
+    against their plain versions and oracles, the '+pallas+unfused' path,
+    and the timings. Returns the kernels line's rows of K3, K4, K5 and K6."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as kn
+    from repro_torch import linalg, ozmm, prepare_operand
+    from repro_torch.core import crt, quantize, scaling
+    from repro_torch.core.plan import pow2_tables
+    from repro_torch.kernels import pipeline
+    from repro_torch.kernels.quant_residues import ops as qr_ops
+    from repro_torch.precision import parse_policy
+
+    big = args.size
+    kernels = (kn.quant_residues, kn.fp8_gemm, kn.int8_gemm, kn.requant_garner)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+
+    def counts():
+        return tuple(f.launches for f in kernels)
+
+    def stacks(x):
+        return list(x) if isinstance(x, tuple) else [x]
+
+    def frames(x, lscale, axis):
+        return kn.decompose_int(quantize.scaled_int(x, lscale, axis))
+
+    def first_pair(sa, sb, ms, l):
+        """The operands of modulus l's first product in the schedule."""
+        if ms.family == "int8":
+            return sa[l], sb[l]
+        return (sa[0][l], sb[1][l]) if ms.is_square[l] else (sa[0][l], sb[0][l])
+
+    # -- each kernel against its plain version (and oracles), three shapes --
+    specs = ("ozaki2-fp8/fast", "ozaki2-karatsuba/fast", "ozaki2-int8/fast")
+    for m, k, n in ((1024, 1024, 1024), (1000, 997, 1003), (big, big, big)):
+        a, b = lognormal(gen, (m, k), 0.5, dev), lognormal(gen, (k, n), 0.5, dev)
+        for spec in specs:
+            ms = parse_policy(spec).moduli_set()
+            scal = scaling.compute_scaling(a, b, ms, "fast")
+            tables = pow2_tables(ms, dev)
+            sides = []
+            for x, lscale, axis in ((a, scal.lmu, 0), (b, scal.lnu, 1)):
+                fr = frames(x, lscale, axis)
+                got = kn.quant_residues(*fr, tables, ms=ms)
+                plain = kn.quant_residues_plain(*fr, tables, ms=ms)
+                torch.cuda.synchronize()
+                for i, (g, w) in enumerate(zip(stacks(got), stacks(plain))):
+                    check_equal(as_bytes(g), as_bytes(w),
+                                f"K6 {spec} {m}x{k}x{n} axis {axis} stack {i} vs plain version")
+                sides.append(got)
+                del fr, plain
+            sa, sb = sides
+            cparts = pipeline.residue_gemms(sa, sb, ms)
+            plain_gemm = kn.int8_gemm_plain if ms.family == "int8" else kn.fp8_gemm_plain
+            with Swapped(pipeline, "int8_gemm", kn.int8_gemm_plain), \
+                    Swapped(pipeline, "fp8_gemm", kn.fp8_gemm_plain):
+                cplain = pipeline.residue_gemms(sa, sb, ms)
+            gemm = "K4" if ms.family == "int8" else "K3"
+            for i, (g, w) in enumerate(zip(cparts, cplain)):
+                check_equal(g, w, f"{gemm} {spec} {m}x{k}x{n}: products c{i + 1} vs plain version")
+            del cplain
+            x, y = first_pair(sa, sb, ms, 0)
+            if ms.family == "int8" and m > 16 and k % 8 == 0 and n % 8 == 0:
+                check_equal(cparts[0][0], torch._int_mm(x, y), f"K4 {m}x{k}x{n} vs torch._int_mm")
+                oracle = "torch._int_mm"
+            elif ms.family != "int8" and m % 16 == 0 and k % 16 == 0 and n % 16 == 0:
+                lib = torch._scaled_mm(x, y.t().contiguous().t(), scale_a=one, scale_b=one,
+                                       out_dtype=torch.float32, use_fast_accum=False)
+                check_equal(cparts[0][0], lib, f"K3 {spec} {m}x{k}x{n} vs torch._scaled_mm")
+                oracle = "torch._scaled_mm"
+            else:
+                oracle = "no oracle (shape)"
+            digits = kn.requant_garner(cparts, ms=ms)
+            check_equal(digits, kn.requant_garner_plain(cparts, ms=ms),
+                        f"K5 {spec} {m}x{k}x{n} vs plain version")
+            torch.cuda.synchronize()
+            print(f"  {spec:24s} {m}x{k}x{n}: K6 (both operands), {gemm} ({len(cparts)} x "
+                  f"{ms.n} planes), K5 == plain versions (bitwise); {gemm} plane 0 == "
+                  f"{oracle}", flush=True)
+            del sa, sb, sides, cparts, digits, x, y
+            torch.cuda.empty_cache()
+        del a, b
+        torch.cuda.empty_cache()
+
+    # -- the main path: ozmm(..., "+pallas+unfused") for the four policies --
+    a, b = lognormal(gen, (big, big), 0.5, dev), lognormal(gen, (big, big), 0.5, dev)
+    for f in kernels:
+        f.launches = 0
+    out = {spec: ozmm(a, b, spec + UNFUSED) for spec in POLICIES}
+    torch.cuda.synchronize()
+    main_launches = counts()
+    mss = [parse_policy(spec).moduli_set() for spec in POLICIES]
+    want = (2 * len(POLICIES), sum(3 * ms.n for ms in mss if ms.family != "int8"),
+            sum(ms.n for ms in mss if ms.family == "int8"), len(POLICIES))
+    print(f"  main path: (K6, K3, K4, K5) launches {main_launches} for {len(POLICIES)} ozmm "
+          f"calls, predicted {want}", flush=True)
+    check(main_launches == want, f"unfused main path: (K6, K3, K4, K5) launches "
+                                 f"{main_launches}, predicted {want}")
+    dgemm = torch.matmul(a, b)
+    for spec, c in out.items():
+        check(c.shape == (big, big) and bool(torch.isfinite(c).all()),
+              f"{spec}{UNFUSED}: output not finite or of the wrong shape")
+        err = (torch.linalg.norm(c - dgemm) / torch.linalg.norm(dgemm)).item()
+        check(err <= 2.0 ** -44, f"{spec}{UNFUSED}: normwise error {err} > 2^-44")
+        check_equal(c, ozmm(a, b, spec + "+core"), f"{spec} {big}^3: {UNFUSED} vs +core")
+        check_equal(c, ozmm(a, b, spec + "+pallas"), f"{spec} {big}^3: {UNFUSED} vs +pallas (K1)")
+        print(f"  {spec:24s} {big}^3: {UNFUSED} == +core == +pallas (bitwise); normwise "
+              f"error vs cuBLAS DGEMM {err:.3e} (gate 2^-44)", flush=True)
+    del out, dgemm
+    torch.cuda.empty_cache()
+
+    # -- prepared pairings and the LU on +pallas+unfused ----------------------
+    for spec in ("ozaki2-fp8/fast", "ozaki2-fp8/accurate"):
+        ms = parse_policy(spec).moduli_set()
+        qa, qb = prepare_operand(a, "lhs", spec), prepare_operand(b, "rhs", spec)
+        before = counts()
+        got = ozmm(qa, qb, spec + UNFUSED)
+        moved = tuple(x - y for x, y in zip(counts(), before))
+        predicted = (0 if spec.endswith("fast") else 2, 3 * ms.n, 0, 1)
+        check(moved == predicted, f"{spec} prepared {UNFUSED}: launches {moved}, "
+                                  f"predicted {predicted}")
+        check_equal(got, ozmm(qa, qb, spec + "+core"), f"{spec} prepared {big}^3: "
+                                                       f"{UNFUSED} vs +core")
+        print(f"  {spec:24s} prepared {big}^3: {UNFUSED} == +core (bitwise), launches "
+              f"{moved}", flush=True)
+        del qa, qb, got
+        torch.cuda.empty_cache()
+    a1, b1 = linalg.hpl_matrix(1024, seed=args.seed + 2)
+    nb1 = 1024 // HPL_BLOCK
+    pairings = (nb1 - 1) + nb1 * (nb1 - 1)  # trailing updates + the solve's folds
+    for spec in ("ozaki2-fp8/fast", "ozaki2-fp8/accurate"):
+        ms = parse_policy(spec).moduli_set()
+        before = counts()
+        lu_k, perm_k = linalg.lu_factor(a1, spec + UNFUSED, block=HPL_BLOCK)
+        x_k = linalg.lu_solve(lu_k, perm_k, b1, spec + UNFUSED, block=HPL_BLOCK)
+        moved = tuple(x - y for x, y in zip(counts(), before))
+        quant = 0 if spec.endswith("fast") else 2 * pairings
+        predicted = (quant, 3 * ms.n * pairings, 0, pairings)
+        check(moved == predicted, f"LU n=1024 {spec}{UNFUSED}: launches {moved}, "
+                                  f"predicted {predicted}")
+        lu_c, perm_c = linalg.lu_factor(a1, spec + "+core", block=HPL_BLOCK)
+        x_c = linalg.lu_solve(lu_c, perm_c, b1, spec + "+core", block=HPL_BLOCK)
+        check(np.array_equal(perm_k, perm_c) and np.array_equal(lu_k, lu_c),
+              f"LU n=1024 {spec}: {UNFUSED} and +core factorizations differ")
+        check(np.array_equal(x_k, x_c), f"LU n=1024 {spec}: {UNFUSED} and +core solves differ")
+        print(f"  LU n=1024 {spec}: {UNFUSED} ((K6, K3, K4, K5) launches {moved}) == +core, "
+              "factorization and solve (bitwise)", flush=True)
+
+    # -- timings at the main-path size --------------------------------------
+    rows, detail = [], []
+    mnk = big ** 3
+    for spec in ("ozaki2-fp8/fast", "ozaki2-int8/fast"):
+        ms = parse_policy(spec).moduli_set()
+        int8 = ms.family == "int8"
+        scal = scaling.compute_scaling(a, b, ms, "fast")
+        tables = pow2_tables(ms, dev)
+        fr = frames(a, scal.lmu, 0)
+        sa = kn.quant_residues(*fr, tables, ms=ms)
+        sb = qr_ops.quant_residues_op(b, scal.lnu, ms=ms, axis=1)
+        x, y = first_pair(sa, sb, ms, 0)
+        plane = torch.empty((big, big), dtype=torch.int32 if int8 else torch.float32, device=dev)
+        cparts = pipeline.residue_gemms(sa, sb, ms)
+        n_out = ms.n if int8 else 3 * ms.n  # K6's part stacks = K5's product planes
+        gemm_kern = kn.int8_gemm if int8 else kn.fp8_gemm
+        gemm_plain = kn.int8_gemm_plain if int8 else kn.fp8_gemm_plain
+        if int8:
+            gemm_lib = lambda: torch._int_mm(x, y)  # noqa: E731
+        else:
+            yc = y.t().contiguous().t()
+            gemm_lib = lambda: torch._scaled_mm(x, yc, scale_a=one, scale_b=one,  # noqa: E731
+                                                out_dtype=torch.float32, use_fast_accum=False)
+        cases = [
+            ("quant_residues", "K6", "src/repro_torch/csrc/quant_residues.cu",
+             "src/repro/kernels/quant_residues/kernel.py:77", main_launches[0],
+             lambda: kn.quant_residues(*fr, tables, ms=ms),
+             lambda: kn.quant_residues_plain(*fr, tables, ms=ms), None,
+             (12 + n_out) * big * big + 4 * ms.n * 1024, 0),
+            ("int8_gemm" if int8 else "fp8_gemm", "K4" if int8 else "K3",
+             "src/repro_torch/csrc/residue_gemm.cu",
+             "src/repro/kernels/int8_gemm/kernel.py:25" if int8
+             else "src/repro/kernels/fp8_gemm/kernel.py:34",
+             main_launches[2] if int8 else main_launches[1],
+             lambda: gemm_kern(x, y, out=plane), lambda: gemm_plain(x, y), gemm_lib,
+             2 * big * big + 4 * big * big, 2 * mnk),
+            ("requant_garner", "K5", "src/repro_torch/csrc/requant_garner.cu",
+             "src/repro/kernels/crt_reconstruct/kernel.py:71", main_launches[3],
+             lambda: kn.requant_garner(cparts, ms=ms),
+             lambda: kn.requant_garner_plain(cparts, ms=ms), None,
+             n_out * 4 * big * big + ms.n * 2 * big * big, 0),
+        ]
+        for name, tag, source, replaces, launches, kern, plain, lib, n_bytes, n_ops in cases:
+            got, ref = kern(), plain()
+            err = max(max_abs_err(g, r) for g, r in zip(stacks(got), stacks(ref)))
+            del got, ref
+            torch.cuda.empty_cache()
+            ms_k = cuda_ms(kern)
+            ms_p = cuda_ms(plain)
+            torch.cuda.empty_cache()
+            ms_l = cuda_ms(lib) if lib else None
+            t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+            t_ops = n_ops / H100_FP8_OPS_PER_S * 1e3
+            row = {"name": name, "tag": tag, "policy": spec, "shape": [big, big, big],
+                   "num_moduli": ms.n, "route": "cuda", "source": source, "replaces": replaces,
+                   "launches": launches, "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes > t_ops else "operations", "library_ms": ms_l}
+            detail.append(row)
+            lib_txt = f"{ms_l:.3f} ms" if ms_l is not None else "none"
+            print(f"  {tag} {name:15s} {spec:18s} kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, "
+                  f"library {lib_txt}, bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
+                  f"launches {launches}, max|kernel-plain| {err}", flush=True)
+        del fr, sa, sb, x, y, plane, cparts
+        torch.cuda.empty_cache()
+    check(all(r["max_abs_err"] == 0.0 for r in detail), "a K3-K6 kernel and its plain version "
+                                                          "differ")
+    for tag in ("K3", "K4", "K5", "K6"):
+        rows.append(next(r for r in detail if r["tag"] == tag))
+
+    # -- one ozmm call split by layer ----------------------------------------
+    split = []
+    for spec in ("ozaki2-fp8/accurate", "ozaki2-int8/fast"):
+        total = cuda_ms(lambda: ozmm(a, b, spec + UNFUSED), 3)
+        with CallTotals(scaling, "compute_scaling") as t_scal, \
+                CallTotals(quantize, "scaled_int") as t_int, \
+                CallTotals(qr_ops, "decompose_int") as t_dec, \
+                CallTotals(qr_ops, "quant_residues") as t_k6, \
+                CallTotals(pipeline, "fp8_gemm") as t_k3, \
+                CallTotals(pipeline, "int8_gemm") as t_k4, \
+                CallTotals(pipeline, "requant_garner") as t_k5, \
+                CallTotals(crt, "reconstruct") as t_epi:
+            ozmm(a, b, spec + UNFUSED)
+            torch.cuda.synchronize()
+        layers = {"scaling": t_scal, "scaled_int": t_int, "decompose_int": t_dec,
+                  "K6": t_k6, "K3": t_k3, "K4": t_k4, "K5": t_k5, "epilogue": t_epi}
+        entry = {"policy": spec + UNFUSED, "shape": [big, big, big], "ozmm_ms": total,
+                 **{f"{k}_ms": v.seconds() * 1e3 for k, v in layers.items()}}
+        split.append(entry)
+        print(f"  {spec}{UNFUSED} {big}^3: ozmm {total:.2f} ms = " + " + ".join(
+            f"{k} {entry[f'{k}_ms']:.2f}" for k in layers) + " + rest", flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+    print(json.dumps({"unfused_kernels": detail, "unfused_split": split}))
+    return [{k: v for k, v in r.items() if k not in ("tag",)} for r in rows]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size", type=int, default=8192,
@@ -273,8 +565,8 @@ def main() -> int:
     from repro_torch.core.moduli import DEFAULT_NUM_MODULI
     from repro_torch.core.scaling import compute_scaling
     from repro_torch.kernels import build, stack_parts
-    from repro_torch.kernels.fused import (KERNEL_TILE, SOURCES, fused_parts_args,
-                                           fused_raw_args, kernel, mma_probe, ops,
+    from repro_torch.kernels.fused import (KERNEL_TILE, fused_parts_args,
+                                           fused_raw_args, mma_probe, ops,
                                            ozmm_fused_parts, ozmm_fused_parts_ref,
                                            ozmm_fused_raw, ozmm_fused_raw_ref)
     from repro_torch.linalg import blas3
@@ -290,12 +582,12 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"capability {torch.cuda.get_device_capability(dev)}", flush=True)
     tb = time.perf_counter()
-    build.build_all(SOURCES)
-    kernel._load()
-    kernel._load_parts()
-    print(f"build: {', '.join(SOURCES)} (one nvcc each, in parallel) in "
+    build.build_all(build.SOURCES)
+    for source in build.SOURCES:
+        build.load_library(source)
+    print(f"build: {', '.join(build.SOURCES)} (one nvcc each, in parallel) in "
           f"{time.perf_counter() - tb:.1f} s", flush=True)
-    for source in SOURCES:
+    for source in build.SOURCES:
         log = build.library_path(source).with_suffix(".log")
         for line in log.read_text().splitlines() if log.exists() else ():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -588,6 +880,10 @@ def main() -> int:
           f"{chol_resid:.3e}, residual history {info['residuals']}")
     t0 = phase("7 linalg/HPL", t0)
     print(json.dumps({"hpl": hpl_rows}))
+
+    # ---- 8. the phase-split +pallas+unfused pipeline ------------------------
+    unfused_rows = unfused_phase(args, dev, gen)
+    t0 = phase("8 unfused pipeline", t0)
     print(f"total {time.perf_counter() - t_start:.1f} s; DEFAULT_NUM_MODULI "
           f"{DEFAULT_NUM_MODULI}", flush=True)
 
@@ -597,7 +893,8 @@ def main() -> int:
     k2_main = dict(next(r for r in k2_rows if r["policy"] == "ozaki2-fp8/fast"),
                    launches=next(r for r in hpl_rows
                                  if r["policy"] == "ozaki2-fp8/fast")["k2_launches"])
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in (main, k2_main)]}))
+    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+                                  for row in (main, k2_main, *unfused_rows)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

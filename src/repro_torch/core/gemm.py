@@ -7,15 +7,15 @@ Entry points run on the card unless the caller asks for the CPU:
 never falls back to the CPU. The tests pass ``device="cpu"``.
 
 Executors of an Ozaki-II policy: the core torch path (``ozmm_ozaki2``,
-``ozmm_prepared`` for prepared operands) or the kernel route
-(``ozmm_pallas_fused``, ``ozmm_pallas_fused_prepared``: the fused Hopper
-kernels on CUDA tensors, their plain versions on CPU tensors).
-``backend="auto"`` takes the kernel route on a compute-capability-9.0 card
-and core elsewhere.
+``ozmm_prepared`` for prepared operands) or the kernel route: the fused
+kernels by default (``ozmm_pallas_fused``, ``ozmm_pallas_fused_prepared``),
+the phase-split pipeline under ``+unfused`` (``ozmm_pallas``,
+``ozmm_pallas_prepared``); the Hopper kernels on CUDA tensors, their plain
+versions on CPU tensors. ``backend="auto"`` takes the kernel route on a
+compute-capability-9.0 card and core elsewhere.
 
 Not ported yet: the custom VJP (a gradient through an emulated ``ozmm``
-raises ``NotImplementedError``), the phase-split ``+unfused`` pipeline and
-the Ozaki-I scheme.
+raises ``NotImplementedError``) and the Ozaki-I scheme.
 """
 from __future__ import annotations
 
@@ -73,17 +73,13 @@ def _executor(pol: PrecisionPolicy, dev: torch.device):
     if _resolve_backend(pol, dev) == "core":
         return functools.partial(ozmm_ozaki2, **kw), "core"
     _check_kernel_route(pol, dev)
-    from repro_torch.kernels.fused import ozmm_pallas_fused  # lazy: core <- kernels
+    from repro_torch.kernels import ozmm_pallas, ozmm_pallas_fused  # lazy: core <- kernels
 
-    return functools.partial(ozmm_pallas_fused, **kw), "pallas"
+    return functools.partial(ozmm_pallas_fused if pol.fused else ozmm_pallas, **kw), "pallas"
 
 
 def _check_kernel_route(pol: PrecisionPolicy, dev: torch.device) -> None:
     """Raise where the kernel route cannot run ``pol`` on ``dev``."""
-    if not pol.fused:
-        raise NotImplementedError(
-            f"policy {pol.spec!r}: the phase-split '+unfused' pipeline "
-            "(kernels K3-K6) is not ported yet (ROADMAP B1-B4)")
     if pol.interpret is not None and pol.interpret != (dev.type == "cpu"):
         raise ValueError(
             f"policy {pol.spec!r} on {dev}: the port runs the kernels on CUDA "
@@ -117,8 +113,9 @@ class _NoVJP(torch.autograd.Function):
 
 def _no_vjp_message(pol: PrecisionPolicy, route: str) -> str:
     if route == "pallas":
+        kernel = "ozmm_pallas_fused" if pol.fused else "ozmm_pallas"
         return (f"policy {pol.spec!r}: backend='pallas' is forward-only — "
-                "ozmm_pallas_fused has no VJP (serving/inference); the "
+                f"{kernel} has no VJP (serving/inference); the "
                 "emulated-GEMM backward is not ported yet (ROADMAP, autograd "
                 "and training slice)")
     return (f"policy {pol.spec!r}: the emulated-GEMM backward "
@@ -153,7 +150,8 @@ def _ozmm_prepared_mixed(a, b, pol: PrecisionPolicy) -> torch.Tensor:
     """Execute with >= 1 prepared operand, quantizing the raw side on the
     fly on the plan's device. When the policy's backend resolves to the
     kernel route there, the pairing runs on the fused kernels
-    (``ozmm_pallas_fused_prepared``); otherwise on the core path."""
+    (``ozmm_pallas_fused_prepared``), or on the phase-split pipeline under
+    ``+unfused`` (``ozmm_pallas_prepared``); otherwise on the core path."""
     anchor = a if isinstance(a, QuantizedMatrix) else b
     ms, dev = anchor.ms, anchor.device
     qa = a if isinstance(a, QuantizedMatrix) else quantize_matrix(
@@ -163,9 +161,9 @@ def _ozmm_prepared_mixed(a, b, pol: PrecisionPolicy) -> torch.Tensor:
     if _resolve_backend(pol, dev) == "core":
         return ozmm_prepared(qa, qb)
     _check_kernel_route(pol, dev)
-    from repro_torch.kernels.fused import ozmm_pallas_fused_prepared  # lazy
+    from repro_torch.kernels import ozmm_pallas_fused_prepared, ozmm_pallas_prepared  # lazy
 
-    return ozmm_pallas_fused_prepared(qa, qb)
+    return (ozmm_pallas_fused_prepared if pol.fused else ozmm_pallas_prepared)(qa, qb)
 
 
 def _check_plan_matches_policy(q: QuantizedMatrix, pol: PrecisionPolicy) -> None:

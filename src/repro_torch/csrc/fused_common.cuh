@@ -1,6 +1,9 @@
 // Device code shared by the two fused Ozaki-II kernels of repro_torch:
 // fused_raw.cu (K1, residues built on chip from raw frames) and
-// fused_parts.cu (K2, residue parts read from prepared stacks).
+// fused_parts.cu (K2, residue parts read from prepared stacks). The
+// phase-split kernels use parts of it too: residue_gemm.cu (K3/K4) the MMA
+// step, the fragment loads and the B transpose; requant_garner.cu (K5) and
+// quant_residues.cu (K6) the moduli parameter block.
 //
 // Both run the same schedule: one block of 8 warps per 64 x 64 output tile,
 // each warp a 32 x 16 sub-tile (2 x 2 mma tiles of m16n8); the moduli in the
@@ -118,6 +121,21 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[2], const uint8_t* base, in
   const uint8_t* p = base + (lane >> 2) * LDS + (lane & 3) * 4;
   b[0] = *reinterpret_cast<const uint32_t*>(p);
   b[1] = *reinterpret_cast<const uint32_t*>(p + 16);
+}
+
+// Four k rows of four B columns (w[i]: row i's 4 column bytes) stored
+// k-contiguous per column for the .col operand of mma.sync: column col + j
+// of dst ([cols][LDS]) gets the k bytes kbyte..kbyte+3. This 4 x 4 byte
+// transpose in registers lets B arrive in its row-major (k, n) layout.
+__device__ __forceinline__ void store_b_transposed(uint8_t* dst, const uint32_t (&w)[4],
+                                                   int col, int kbyte) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v |= ((w[i] >> (8 * j)) & 0xFFu) << (8 * i);
+    *reinterpret_cast<uint32_t*>(dst + (col + j) * LDS + kbyte) = v;
+  }
 }
 
 // The products of one k-tile whose parts sit in a_s ([3][BM][LDS]) and b_s

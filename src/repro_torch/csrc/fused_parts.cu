@@ -77,13 +77,7 @@ __device__ __forceinline__ void load_b_tile(uint8_t* dst, const uint8_t* src, in
     w[i] = *reinterpret_cast<const uint32_t*>(src + static_cast<size_t>(k0 + 4 * kb + i) * n +
                                               col0 + 4 * cb);
   }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t col = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) col |= ((w[i] >> (8 * j)) & 0xFFu) << (8 * i);
-    *reinterpret_cast<uint32_t*>(dst + (4 * cb + j) * LDS + 4 * kb) = col;
-  }
+  store_b_transposed(dst, w, 4 * cb, 4 * kb);
 }
 
 // One modulus over the whole contraction: its parts of each k-tile copied to

@@ -40,7 +40,6 @@
 // price. Barrett reduction and residues hoisted out of the per-tile
 // recompute, then wgmma/TMA, are the queued work (ROADMAP).
 
-#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -72,10 +71,6 @@ __device__ __forceinline__ int residue(int mh, int ml, int sc, int p, const int*
   return ozaki::cmod(sg * r, p);
 }
 
-__device__ __forceinline__ uint8_t e4m3(int v) {
-  return static_cast<uint8_t>(__nv_cvt_float_to_fp8(static_cast<float>(v), __NV_SATFINITE, __NV_E4M3));
-}
-
 // Residue -> parts at dst, dst + PART, dst + 2*PART (_split_fp8): (hi, lo) by
 // a round-half-even split for a square modulus p = s^2, (hi, lo, hi + lo) by a
 // ceil split for a Karatsuba modulus, the residue itself for int8.
@@ -84,15 +79,15 @@ __device__ __forceinline__ void store_parts(uint8_t* dst, int r, int s) {
   if constexpr (KIND == KIND_INT8) {
     dst[0] = static_cast<uint8_t>(static_cast<int8_t>(r));
   } else if constexpr (KIND == KIND_SQUARE) {
-    const int hi = __float2int_rn(__fdiv_rn(static_cast<float>(r), static_cast<float>(s)));
-    dst[0] = e4m3(hi);
-    dst[PART] = e4m3(r - s * hi);
+    const int hi = ozaki::split_square_hi(r, s);
+    dst[0] = ozaki::e4m3(hi);
+    dst[PART] = ozaki::e4m3(r - s * hi);
   } else {
-    const int hi = ((r > 0) - (r < 0)) * ((abs(r) + 15) / 16);
+    const int hi = ozaki::split_karatsuba_hi(r);
     const int lo = r - 16 * hi;
-    dst[0] = e4m3(hi);
-    dst[PART] = e4m3(lo);
-    dst[2 * PART] = e4m3(hi + lo);
+    dst[0] = ozaki::e4m3(hi);
+    dst[PART] = ozaki::e4m3(lo);
+    dst[2 * PART] = ozaki::e4m3(hi + lo);
   }
 }
 

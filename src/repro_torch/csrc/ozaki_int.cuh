@@ -1,12 +1,15 @@
-// Integer and f64 helpers of the Ozaki-II reconstruction, shared by the CUDA
-// kernels of repro_torch.
+// Integer and f64 helpers of the Ozaki-II quantization and reconstruction,
+// shared by the CUDA kernels of repro_torch.
 //
 // Device counterparts of repro/kernels/crt_reconstruct/kernel.py (_centered,
-// _cmod, _combine, _garner, lines 24-49) and of numerics.ldexp_wide. They
-// must give the reference's integers bit for bit: C's % truncates toward
-// zero while jnp.mod and torch.remainder floor, so every reduction goes
-// through floor_mod.
+// _cmod, _combine, _garner, lines 24-49), of the residue splits of
+// repro/core/quantize.py (split_square, split_karatsuba) and of
+// numerics.ldexp_wide. They must give the reference's integers bit for bit:
+// C's % truncates toward zero while jnp.mod and torch.remainder floor, so
+// every reduction goes through floor_mod.
 #pragma once
+
+#include <cuda_fp8.h>
 
 #include <cstdint>
 
@@ -33,6 +36,26 @@ __device__ __forceinline__ int cmod(int x, int p) { return centered(floor_mod(x,
 __device__ __forceinline__ int combine(int c1, int c2, int c3, int p, bool square, int s) {
   if (square) return cmod(s * (c1 + c2) + c3, p);
   return cmod(256 * cmod(c1, p) + cmod(c2, p) + 16 * cmod(c3 - c1 - c2, p), p);
+}
+
+// hi of the round split of a residue of a square modulus p = s^2
+// (quantize.split_square): round(r / s) half to even, after an IEEE f32
+// division, as jnp.round(r.astype(f32) / f32(s)) computes it. lo = r - s*hi.
+__device__ __forceinline__ int split_square_hi(int r, int s) {
+  return __float2int_rn(__fdiv_rn(static_cast<float>(r), static_cast<float>(s)));
+}
+
+// hi of the ceil split of a residue of a Karatsuba modulus
+// (quantize.split_karatsuba): sign(r) * ceil(|r| / 16). lo = r - 16*hi,
+// hs = hi + lo.
+__device__ __forceinline__ int split_karatsuba_hi(int r) {
+  return ((r > 0) - (r < 0)) * ((abs(r) + 15) / 16);
+}
+
+// A small integer (|v| <= 16 for the parts, exact in e4m3) as its e4m3 byte.
+__device__ __forceinline__ uint8_t e4m3(int v) {
+  return static_cast<uint8_t>(
+      __nv_cvt_float_to_fp8(static_cast<float>(v), __NV_SATFINITE, __NV_E4M3));
 }
 
 // Balanced Garner mixed-radix digit i (radix order) from the centred residue

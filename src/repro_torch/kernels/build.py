@@ -3,7 +3,8 @@ plain C interface and load them with ``ctypes``.
 
 ``nvcc`` compiles for ``sm_90a`` at first use, into a directory keyed by a
 hash of the sources and flags, so a changed source is never served a stale
-library; ``build_all`` runs one nvcc per source, all at once. The directory
+library; ``build_all`` runs one nvcc per source, all at once, and the first
+``load_library`` builds every source of ``SOURCES`` that way. The directory
 is ``$REPRO_TORCH_BUILD_DIR`` when set, else ``repro_torch/_build`` beside
 the package (listed in ``.gitignore``). Each build leaves ``<name>.log``
 beside the library, with ptxas's register, shared-memory and spill report.
@@ -19,6 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
+#: Every kernel source, one library each.
+SOURCES = tuple(sorted(p.name for p in CSRC.glob("*.cu")))
 
 # No --use_fast_math: it brings approximate division and flush-to-zero.
 # --fmad=false keeps nvcc from contracting a multiply and an add into an FMA
@@ -81,7 +84,8 @@ def build_all(sources) -> None:
 
 
 def load_library(source: str) -> ctypes.CDLL:
-    """Build ``csrc/<source>`` unless a library of the same sources exists,
-    then load it. Raises RuntimeError with nvcc's output if the build fails."""
-    build_all([source])
+    """Build every source whose library is missing (``build_all(SOURCES)``),
+    then load ``csrc/<source>``'s. Raises RuntimeError with nvcc's output if
+    a build fails."""
+    build_all(SOURCES)
     return ctypes.CDLL(str(library_path(source)))

@@ -1,0 +1,86 @@
+"""The e4m3 residue GEMM (K3): wrapper of the hand-written Hopper kernel
+``csrc/residue_gemm.cu`` (entry ``fp8_gemm_launch``), which replaces
+``repro/kernels/fp8_gemm/kernel.py::fp8_gemm`` (body ``_gemm_kernel``), and
+its plain PyTorch version. ``residue_gemm`` is the launch code it shares
+with the int8 GEMM (K4, ``kernels/int8_gemm``), the other entry of the same
+source.
+
+e4m3 A (m, k) @ e4m3 B (k, n) -> f32 C (m, n), exact for integer entries
+|x| <= 16 and k <= 2^16. Any m, n, k: the kernel masks the ragged edges, so
+nothing is padded (the reference's ops.py pads; there is no ops.py here),
+and ``out=`` writes C into a preallocated plane, such as one modulus' plane
+of the pipeline's (N, m, n) product stack.
+
+A CUDA tensor goes to the kernel or raises; only CPU tensors take the plain
+version ``fp8_gemm_plain``. ``fp8_gemm.launches`` counts kernel launches and
+``fp8_gemm_plain.calls`` plain-version calls.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core import numerics
+
+from ..launch import bind, check_tensors, raise_on_error, stream
+
+#: Largest contraction kept exact: the FP8 sum reaches k*2^8 and must stay
+#: within f32's 2^24 (fused/kernel.py::MAX_K guards the same).
+MAX_K = 2 ** 16
+
+
+def fp8_gemm_plain(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None):
+    """Plain PyTorch version of ``fp8_gemm``: the core route's exact f32
+    product (``numerics.matmul_exact_fp8``), into ``out`` when given."""
+    fp8_gemm_plain.calls += 1
+    c = numerics.matmul_exact_fp8(a, b)
+    return c if out is None else out.copy_(c)
+
+
+fp8_gemm_plain.calls = 0
+
+
+@functools.cache
+def _load(entry: str) -> ctypes.CDLL:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    return bind("residue_gemm.cu", entry, [ptr] * 3 + [i32] * 5 + [ptr])
+
+
+def residue_gemm(kernel, plain, a, b, out, in_dtype: torch.dtype, out_dtype: torch.dtype):
+    """Check and run one residue GEMM of ``csrc/residue_gemm.cu``: the entry
+    ``<kernel.__name__>_launch`` on CUDA tensors (counted on
+    ``kernel.launches``), ``plain`` on CPU tensors. ``out`` (m, n) or None
+    (allocated)."""
+    name = kernel.__name__
+    m, k = a.shape
+    n = b.shape[1]
+    named = [("a", a, in_dtype, (m, k)), ("b", b, in_dtype, (k, n))]
+    if out is not None:
+        named.append(("out", out, out_dtype, (m, n)))
+    dev = check_tensors(name, named)
+    if k > MAX_K:
+        raise ValueError(f"{name}: k = {k} exceeds {MAX_K}, beyond which the "
+                         "residue products are not kept exact")
+    if dev.type == "cpu":
+        return plain(a, b, out)
+    lib = _load(f"{name}_launch")
+    if out is None:
+        out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    aligned = k % 16 == 0 and n % 4 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 4 == 0
+    err = getattr(lib, f"{name}_launch")(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+                                         int(aligned), dev.index, stream(dev))
+    raise_on_error(name, lib, err)
+    kernel.launches += 1
+    return out
+
+
+def fp8_gemm(a: torch.Tensor, b: torch.Tensor, *, out: torch.Tensor | None = None):
+    """C = A @ B for e4m3 A (m, k), B (k, n), as float32 (m, n), written into
+    ``out`` when given. CUDA tensors run the kernel (or raise); CPU tensors
+    run ``fp8_gemm_plain``."""
+    return residue_gemm(fp8_gemm, fp8_gemm_plain, a, b, out, numerics.E4M3, torch.float32)
+
+
+fp8_gemm.launches = 0

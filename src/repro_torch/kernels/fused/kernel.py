@@ -25,27 +25,22 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from repro_torch.core import crt, numerics, quantize
 from repro_torch.core.moduli import POW2_TABLE_LEN, ModuliSet
 from repro_torch.core.plan import residue_products
 
-from ..build import load_library
+from ..launch import (MAX_MODULI, MODULI_TAIL, bind, check_tensors, moduli_tail,
+                      raise_on_error, stream)
 
 MANT_SPLIT = 26  # raw frame: mant = mh * 2^26 + ml (ops.decompose_raw)
 
 #: (BM, BN, BK) compiled into csrc/fused_common.cuh; operands arrive padded to it.
 KERNEL_TILE = (64, 64, 64)
-#: MAXN in csrc/fused_common.cuh: N int16 residue tiles of BM x BN sit in
-#: shared memory (8 KiB each) beside the part and table buffers.
-MAX_MODULI = 20
 #: Largest contraction the int32 arithmetic keeps exact: the square-modulus
 #: combine reaches 67*k*2^8 and the int8 accumulator k*2^14, both < 2^31.
 MAX_K = 2 ** 16
-
-_KIND_SQUARE, _KIND_KARATSUBA, _KIND_INT8 = 0, 1, 2
 
 
 # ---------------------------------------------------------------------------
@@ -120,22 +115,11 @@ ozmm_fused_parts_ref.calls = 0
 # Kernel
 # ---------------------------------------------------------------------------
 
-#: The CUDA sources of the two kernels, built by ``build.load_library``.
-SOURCES = ("fused_raw.cu", "fused_parts.cu")
-
-
 def _bind(source: str, launch: str, n_ptr: int) -> ctypes.CDLL:
-    """Load the library of ``csrc/<source>`` and type its launch entry:
-    ``n_ptr`` device pointers, then m, n, k, num_moduli and the device, then
-    the 7 moduli arrays and the stream."""
-    lib = load_library(source)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = getattr(lib, launch)
-    fn.argtypes = [ptr] * n_ptr + [i32] * 5 + [ptr] * 8
-    fn.restype = i32
-    lib.cuda_error_string.argtypes = [i32]
-    lib.cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    """Bind a fused kernel's launch entry: ``n_ptr`` device pointers, then
+    m, n, k, num_moduli and the device, then the 7 moduli arrays and the
+    stream."""
+    return bind(source, launch, [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + MODULI_TAIL)
 
 
 @functools.cache
@@ -152,31 +136,11 @@ def _load_parts() -> ctypes.CDLL:
     return _bind("fused_parts.cu", "ozmm_fused_parts_launch", 9)
 
 
-@functools.lru_cache(maxsize=None)
-def _host_consts(ms: ModuliSet) -> tuple[np.ndarray, ...]:
-    """Moduli constants the C entry copies into the kernel's parameter block:
-    ps, split_s, kind (selection order), radix_order, radix_ps, garner_inv
-    (N x N, row j = inverse of radix modulus j), radix weights."""
-    if ms.family == "int8":
-        kind = [_KIND_INT8] * ms.n
-    else:
-        kind = [_KIND_SQUARE if sq else _KIND_KARATSUBA for sq in ms.is_square]
-    i32 = functools.partial(np.ascontiguousarray, dtype=np.int32)
-    return (i32(ms.ps), i32(ms.split_s), i32(kind), i32(ms.radix_order),
-            i32(ms.radix_ps), i32(ms.garner_inv),
-            np.ascontiguousarray(ms.radix_weights_f64, dtype=np.float64))
-
-
 def _check_inputs(kernel: str, named, m: int, n: int, k: int,
                   ms: ModuliSet) -> torch.device:
     """Raise unless every (name, tensor, dtype, shape) of ``named`` matches and
     (m, n, k, N) is what the kernel takes; return the one device."""
-    for name, t, dtype, shape in named:
-        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            want = str(dtype).removeprefix("torch.")
-            raise ValueError(f"{kernel}: {name} must be a contiguous {want} "
-                             f"tensor of shape {shape}, got {t.dtype} "
-                             f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
+    dev = check_tensors(kernel, named)
     if any(d % b for d, b in zip((m, n, k), KERNEL_TILE)):
         raise ValueError(f"{kernel}: (m, n, k) = {(m, n, k)} must be "
                          f"multiples of the kernel tile {KERNEL_TILE} (ops pads)")
@@ -186,25 +150,7 @@ def _check_inputs(kernel: str, named, m: int, n: int, k: int,
     if ms.n > MAX_MODULI:
         raise ValueError(f"{kernel}: {ms.n} moduli exceed the kernel's "
                          f"{MAX_MODULI} shared-memory residue tiles")
-    devices = {t.device for _, t, _, _ in named}
-    if len(devices) != 1:
-        raise ValueError(f"{kernel}: inputs on several devices {devices}")
-    dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{kernel} runs on CUDA or CPU tensors, got {dev}")
     return dev
-
-
-def _raise_on_error(kernel: str, lib: ctypes.CDLL, err: int) -> None:
-    if err:
-        raise RuntimeError(f"{kernel}: launch failed with CUDA error {err} "
-                           f"({lib.cuda_error_string(err).decode()})")
-
-
-def _launch_tail(ms: ModuliSet, dev: torch.device) -> tuple:
-    """The moduli arrays and the stream, the last arguments of a launch."""
-    return (*(c.ctypes.data for c in _host_consts(ms)),
-            torch.cuda.current_stream(dev).cuda_stream)
 
 
 def ozmm_fused_raw(mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl, *,
@@ -224,8 +170,8 @@ def ozmm_fused_raw(mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl, *,
     lib = _load()
     out = torch.empty((m, n), dtype=torch.float64, device=dev)
     err = lib.ozmm_fused_raw_launch(*(t.data_ptr() for t in args), out.data_ptr(),
-                                    m, n, k, ms.n, dev.index, *_launch_tail(ms, dev))
-    _raise_on_error("ozmm_fused_raw", lib, err)
+                                    m, n, k, ms.n, dev.index, *moduli_tail(ms, dev))
+    raise_on_error("ozmm_fused_raw", lib, err)
     ozmm_fused_raw.launches += 1
     return out
 
@@ -258,8 +204,8 @@ def ozmm_fused_parts(sa, sb, lmu, lnu, *, ms: ModuliSet) -> torch.Tensor:
     ptrs_b = [t.data_ptr() for t in parts_b] + [None] * (3 - len(parts_b))
     err = lib.ozmm_fused_parts_launch(*ptrs_a, *ptrs_b, lmu.data_ptr(), lnu.data_ptr(),
                                       out.data_ptr(), m, n, k, ms.n, dev.index,
-                                      *_launch_tail(ms, dev))
-    _raise_on_error("ozmm_fused_parts", lib, err)
+                                      *moduli_tail(ms, dev))
+    raise_on_error("ozmm_fused_parts", lib, err)
     ozmm_fused_parts.launches += 1
     return out
 
@@ -283,7 +229,6 @@ def mma_probe(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     exact = torch.empty((16, 8), dtype=torch.int32, device=a.device)
     chained = torch.empty((16, 8), dtype=torch.float32, device=a.device)
     err = lib.mma_probe_launch(a.data_ptr(), bt.data_ptr(), k, exact.data_ptr(),
-                               chained.data_ptr(), a.device.index,
-                               torch.cuda.current_stream(a.device).cuda_stream)
-    _raise_on_error("mma_probe", lib, err)
+                               chained.data_ptr(), a.device.index, stream(a.device))
+    raise_on_error("mma_probe", lib, err)
     return exact, chained

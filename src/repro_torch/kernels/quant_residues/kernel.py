@@ -1,0 +1,79 @@
+"""The residue quantization pass (K6): wrapper of the hand-written Hopper
+kernel ``csrc/quant_residues.cu``, which replaces
+``repro/kernels/quant_residues/kernel.py::quant_residues`` (bodies
+``_quant_kernel``/``_quant_kernel_int8``), and its plain PyTorch version.
+
+From the int32 frame (mh, ml, e) of a scaled integer operand
+(``ref.decompose_int``) and the 2^e-mod-p tables, for every modulus in one
+pass: the centred residue, then the split into (hi, lo, hs) e4m3 stacks
+(N, m, k) (hs zero-filled for square moduli), or one int8 stack.
+
+A CUDA tensor goes to the kernel or raises; only CPU tensors take the plain
+version ``quant_residues_plain``. ``quant_residues.launches`` counts kernel
+launches and ``quant_residues_plain.calls`` plain-version calls.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core import numerics, quantize
+from repro_torch.core.moduli import POW2_TABLE_LEN, ModuliSet
+
+from ..common import stack_parts
+from ..launch import MODULI_TAIL, bind, check_moduli, check_tensors, moduli_tail, raise_on_error
+from .ref import MANT_SPLIT
+
+
+def quant_residues_plain(mh, ml, e, tbl, *, ms: ModuliSet):
+    """Plain PyTorch version of ``quant_residues`` on the inputs' device: the
+    kernel's int32 residue arithmetic (2^26 mod p is the table's entry 26;
+    the index e clamped to the table, as JAX's gather clamps), then the core
+    route's split and ``stack_parts``."""
+    quant_residues_plain.calls += 1
+    idx = e.clamp(0, tbl.shape[1] - 1).long()
+    rs = []
+    for l, p in enumerate(ms.ps):
+        pw = tbl[l]
+        rm = torch.remainder(mh, p) * pw[MANT_SPLIT] + torch.remainder(ml, p)
+        rs.append(numerics.centered_mod(torch.remainder(rm, p) * pw[idx], p))
+    return stack_parts(quantize.split_residues(rs, ms), ms)
+
+
+quant_residues_plain.calls = 0
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
+    ptr = ctypes.c_void_p
+    return bind("quant_residues.cu", "quant_residues_launch",
+                [ptr] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + MODULI_TAIL)
+
+
+def quant_residues(mh, ml, e, tbl, *, ms: ModuliSet):
+    """Part stacks (N, m, k) of the frame mh, ml, e (int32 (m, k)) under the
+    tables ``tbl`` (int32 (N, 1024)): (hi, lo, hs) e4m3 for the fp8
+    families, one int8 stack for int8. CUDA tensors run the kernel (or
+    raise); CPU tensors run ``quant_residues_plain``."""
+    m, k = mh.shape
+    named = [("mh", mh, torch.int32, (m, k)), ("ml", ml, torch.int32, (m, k)),
+             ("e", e, torch.int32, (m, k)), ("tbl", tbl, torch.int32, (ms.n, POW2_TABLE_LEN))]
+    dev = check_tensors("quant_residues", named)
+    check_moduli("quant_residues", ms)
+    if dev.type == "cpu":
+        return quant_residues_plain(mh, ml, e, tbl, ms=ms)
+    lib = _load()
+    int8 = ms.family == "int8"
+    outs = tuple(torch.empty((ms.n, m, k), dtype=torch.int8 if int8 else numerics.E4M3,
+                             device=dev) for _ in range(1 if int8 else 3))
+    ptrs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
+    err = lib.quant_residues_launch(mh.data_ptr(), ml.data_ptr(), e.data_ptr(), tbl.data_ptr(),
+                                    *ptrs, m * k, ms.n, dev.index, *moduli_tail(ms, dev))
+    raise_on_error("quant_residues", lib, err)
+    quant_residues.launches += 1
+    return outs[0] if int8 else outs
+
+
+quant_residues.launches = 0

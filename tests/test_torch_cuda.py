@@ -1,5 +1,8 @@
 """The Hopper kernels of repro_torch (K1 ozmm_fused_raw, K2
-ozmm_fused_parts) against their plain versions on the card, bitwise. Every test here is marked ``cuda`` and skips without a CUDA device.
+ozmm_fused_parts, and the phase-split pipeline's K3 fp8_gemm, K4 int8_gemm,
+K5 requant_garner, K6 quant_residues) against their plain versions on the
+card, bitwise. Every test here is marked ``cuda`` and skips without a CUDA
+device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch; there, skip the JAX-importing conftest::
@@ -120,3 +123,121 @@ def test_kernel_route_lu_and_solve_on_card(mode):
     np.testing.assert_array_equal(perm, perm_c)
     np.testing.assert_array_equal(lu, lu_c)
     np.testing.assert_array_equal(x, linalg.lu_solve(lu_c, perm_c, b, spec + "+core", block=blk))
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs the CUDA card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(200, 72, 300), (130, 96, 260), (1000, 997, 1003)])
+def test_residue_gemms_bitwise_vs_plain_on_card(shape):
+    """K3 and K4 at ragged shapes (byte-wise loads where k % 16 or n % 4 is
+    not 0, vector loads otherwise), written through an out= plane of a
+    stack, against their plain versions; edges past the plane untouched."""
+    from repro_torch.kernels import fp8_gemm, fp8_gemm_plain, int8_gemm, int8_gemm_plain
+
+    _need_card()
+    m, k, n = shape
+    rng = np.random.default_rng(10)
+    cases = [(fp8_gemm, fp8_gemm_plain, 16, torch.float32),
+             (int8_gemm, int8_gemm_plain, 128, torch.int32)]
+    for kern, plain, lim, out_dtype in cases:
+        a = torch.tensor(rng.integers(-lim, lim, (m, k)), dtype=torch.float32, device="cuda")
+        b = torch.tensor(rng.integers(-lim, lim, (k, n)), dtype=torch.float32, device="cuda")
+        dtype = torch.float8_e4m3fn if kern is fp8_gemm else torch.int8
+        a, b = a.to(dtype), b.to(dtype)
+        stack = torch.full((3, m, n), 7, dtype=out_dtype, device="cuda")
+        launches = kern.launches
+        got = kern(a, b, out=stack[1])
+        assert kern.launches == launches + 1
+        assert got.data_ptr() == stack[1].data_ptr()
+        assert torch.equal(got, plain(a, b))
+        assert bool((stack[0] == 7).all() and (stack[2] == 7).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["ozaki2-fp8/fast", "ozaki2-karatsuba/fast",
+                                  "ozaki2-int8/fast", "ozaki2-fp8/fast@20"])
+def test_quant_residues_bitwise_vs_plain_on_card(spec):
+    """K6 on the frames of a scaled operand with tiny, huge and zero rows,
+    against its plain version (e4m3 compared as bytes)."""
+    from repro_torch.core.plan import pow2_tables
+    from repro_torch.core.quantize import scaled_int
+    from repro_torch.kernels import decompose_int, quant_residues, quant_residues_plain
+
+    _need_card()
+    rng = np.random.default_rng(11)
+    ms = parse_policy(spec).moduli_set()
+    x = _lognormal(rng, (100, 301), 2.0)
+    x[0] *= 1e-300
+    x[1] *= 1e300
+    x[2] = 0.0
+    a = torch.from_numpy(x).cuda()
+    lscale = torch.tensor(rng.integers(-20, 60, 100), dtype=torch.int32, device="cuda")
+    frame = decompose_int(scaled_int(a, lscale, 0))
+    tables = pow2_tables(ms, a.device)
+    launches = quant_residues.launches
+    got = quant_residues(*frame, tables, ms=ms)
+    assert quant_residues.launches == launches + 1
+    want = quant_residues_plain(*frame, tables, ms=ms)
+    got, want = (got,) if ms.family == "int8" else got, (want,) if ms.family == "int8" else want
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["ozaki2-fp8/fast", "ozaki2-karatsuba/fast", "ozaki2-int8/fast"])
+def test_requant_garner_bitwise_vs_plain_on_card(spec):
+    """K5 on random product stacks of the largest magnitudes the schedule
+    makes (|c| < 2^24 for fp8, < 2^30 for int8), against its plain version."""
+    from repro_torch.kernels import requant_garner, requant_garner_plain
+
+    _need_card()
+    rng = np.random.default_rng(12)
+    ms = parse_policy(spec).moduli_set()
+    shape = (ms.n, 97, 131)
+    if ms.family == "int8":
+        cparts = (torch.tensor(rng.integers(-2 ** 30, 2 ** 30, shape), dtype=torch.int32,
+                               device="cuda"),)
+    else:
+        cparts = tuple(torch.tensor(rng.integers(-2 ** 24, 2 ** 24, shape),
+                                    dtype=torch.float32, device="cuda") for _ in range(3))
+    launches = requant_garner.launches
+    got = requant_garner(cparts, ms=ms)
+    assert requant_garner.launches == launches + 1
+    assert torch.equal(got, requant_garner_plain(cparts, ms=ms))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["ozaki2-fp8/fast", "ozaki2-fp8/accurate",
+                                  "ozaki2-karatsuba/fast", "ozaki2-int8/accurate"])
+def test_unfused_route_on_card(spec):
+    """'+pallas+unfused' on the card, raw and prepared, equals '+core' and
+    the fused '+pallas' bit for bit, with K6 2, K3 3N (K4 N) and K5 1
+    launches a call."""
+    from repro_torch import prepare_operand
+    from repro_torch import kernels as kn
+
+    _need_card()
+    rng = np.random.default_rng(13)
+    ms = parse_policy(spec).moduli_set()
+    a = torch.from_numpy(_lognormal(rng, (200, 300), 2.0)).cuda()
+    b = torch.from_numpy(_lognormal(rng, (300, 130), 2.0)).cuda()
+    gemm = kn.int8_gemm if ms.family == "int8" else kn.fp8_gemm
+    per_call = ms.n if ms.family == "int8" else 3 * ms.n
+
+    def counts():
+        return kn.quant_residues.launches, gemm.launches, kn.requant_garner.launches
+
+    before = counts()
+    got = ozmm(a, b, spec + "+pallas+unfused")
+    assert tuple(x - y for x, y in zip(counts(), before)) == (2, per_call, 1)
+    assert torch.equal(got, ozmm(a, b, spec + "+core"))
+    assert torch.equal(got, ozmm(a, b, spec + "+pallas"))
+    qa, qb = prepare_operand(a, "lhs", spec), prepare_operand(b, "rhs", spec)
+    before = counts()
+    assert torch.equal(ozmm(qa, qb, spec + "+pallas+unfused"), got)
+    quant = 0 if parse_policy(spec).mode == "fast" else 2
+    assert tuple(x - y for x, y in zip(counts(), before)) == (quant, per_call, 1)

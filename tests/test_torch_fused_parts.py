@@ -110,16 +110,16 @@ def test_fast_pairing_kernel_route_bitwise(family, n):
 
 def test_explicit_pallas_with_prepared_operands_runs(rng):
     """An explicit '+pallas' with prepared operands takes the kernel route
-    (it used to raise); the phase-split '+unfused' route still refuses, and
-    '+compiled' refuses CPU tensors."""
+    (it used to raise); so does the phase-split '+unfused' route (it used to
+    refuse), with the same bits; '+compiled' refuses CPU tensors."""
     a = rng.random((8, 16)) - 0.5
     qa = prepare_operand(a, "lhs", "ozaki2-fp8/fast@4", device="cpu")
     calls = fused.ozmm_fused_parts_ref.calls
     got = backend_matmul(qa, a.T, "ozaki2-fp8/fast@4+pallas")
     assert fused.ozmm_fused_parts_ref.calls == calls + 1
     np.testing.assert_array_equal(got.numpy(), ozmm(qa, a.T, "ozaki2-fp8/fast@4+core").numpy())
-    with pytest.raises(NotImplementedError, match="unfused"):
-        backend_matmul(qa, a.T, "ozaki2-fp8/fast@4+pallas+unfused")
+    np.testing.assert_array_equal(
+        backend_matmul(qa, a.T, "ozaki2-fp8/fast@4+pallas+unfused").numpy(), got.numpy())
     with pytest.raises(ValueError, match="plain versions"):
         backend_matmul(qa, a.T, "ozaki2-fp8/fast@4+pallas+compiled")
 

@@ -30,6 +30,7 @@ def test_no_jax_or_repro_imports_in_the_port():
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.kernels.fused, repro_torch.kernels.build, "
+            "repro_torch.kernels.pipeline, "
             "repro_torch.linalg, repro_torch.precision.resolve; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
