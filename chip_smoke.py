@@ -2,45 +2,57 @@
 """Smoke run of the PyTorch/CUDA port (repro_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py                          # from the root of a checkout
-    python3 chip_smoke.py --size 2048 --hpl-n 2048  # a quick first call
+    python3 chip_smoke.py --size 2048 --hpl-n 1024  # a quick first call
 
 Phases, each printing its elapsed time; any failed check raises and the
 script exits non-zero without printing a result:
 
 1. card: name and power limit; build of the CUDA kernels from csrc/ (one
-   nvcc per source, all started together).
-2. MMA probe: the fused kernels' own k32 FP8 MMA step on +-16 and mixed
-   e4m3 patterns at k up to 65536 against an int64 product; also reports
-   whether a plain f32 accumulation across k steps would have been exact.
-3. K1 (ozmm_fused_raw) vs its plain version, bitwise (torch.equal), at
-   1024^3, 1000x997x1003 and the main-path size, for ozaki2-fp8
-   fast/accurate, ozaki2-karatsuba fast and ozaki2-int8 fast; and against
-   the port's '+core' route.
+   nvcc per source, all started together), with ptxas's registers, shared
+   memory and spills of each kernel.
+2. MMA probes: K3/K4's mma.sync k32 FP8 step, and the K1/K2 GEMM core's
+   wgmma step (each k32 product into a fresh f32 fragment, promoted into an
+   f32 sum), on +-16 and mixed e4m3 patterns at k up to 65536 against an
+   int64 product; each also beside an f32 accumulator chained across the
+   steps: the longest exact wgmma chain, which the core's promotion
+   interval must not exceed.
+3. K1 (ozmm_fused_raw: residue prologue + GEMM core) vs its plain version,
+   bitwise (torch.equal), at 1024^3, 1000x997x1003 and the main-path size,
+   for ozaki2-fp8 fast/accurate, ozaki2-karatsuba fast and ozaki2-int8 fast;
+   against the port's '+core' route; and its residue prologue (raw_parts)
+   alone against its plain version on every plane it writes.
 4. main path: ozmm(a, b, "ozaki2-fp8/accurate") and ".../fast" through
-   backend auto at the main-path size; K1's launch count must move;
-   normwise error vs cuBLAS DGEMM <= 2^-44; integer inputs reproduce A @ B
-   to rtol 1e-14 (the reference's own gate, tests/core/test_ozmm_accuracy.py:
-   the f64-rounded Garner weights leave ~1 ulp) and bit for bit on a rerun.
-5. K1 timings: median of 3 CUDA-event-timed runs after a warm-up, for the
-   kernel, its plain version and a whole ozmm call (5 for the cheaper
-   layers and cuBLAS DGEMM, torch.matmul in float64, a yardstick the port
-   never calls), with the kernel's roofline bound.
-6. K2 (ozmm_fused_parts) on plans prepared on the card, bitwise against its
-   plain version, the '+core' route and the unprepared ozmm (K1), at the
-   three shapes of phase 3, for ozaki2-fp8, ozaki2-karatsuba and ozaki2-int8
-   fast; one accurate prepared pair on '+pallas' (K1 under the bound GEMM's
-   exponents) against '+core'; K2's timings (median of 5 after a warm-up)
-   at the main-path size beside K1's and cuBLAS DGEMM's.
+   backend auto at the main-path size; K1's launch count must move, with two
+   prologue launches each; normwise error vs cuBLAS DGEMM <= 2^-44; integer
+   inputs reproduce A @ B to rtol 1e-14 (the reference's own gate,
+   tests/core/test_ozmm_accuracy.py: the f64-rounded Garner weights leave
+   ~1 ulp) and bit for bit on a rerun.
+5. K1 timings: median of 5 CUDA-event-timed runs after a warm-up (3 for the
+   plain version), for the kernel, its split into prologue and core (and
+   the core at k = 128, one k-tile per modulus: its per-tile epilogue), its
+   plain version and a whole ozmm call, the cheaper layers and cuBLAS DGEMM
+   (torch.matmul in float64, a yardstick the port never calls), with the
+   kernel's roofline bound.
+6. K2 (ozmm_fused_parts: B transpose + GEMM core) on plans prepared on the
+   card, bitwise against its plain version, the '+core' route and the
+   unprepared ozmm (K1), at the three shapes of phase 3, for ozaki2-fp8,
+   ozaki2-karatsuba and ozaki2-int8 fast; one accurate prepared pair on
+   '+pallas' (K1 under the bound GEMM's exponents) against '+core'; K2's
+   timings (median of 5 after a warm-up) at the main-path size, split into
+   transpose and core, beside K1's, cuBLAS DGEMM's and the same 3N FP8 (N
+   int8) products through torch._scaled_mm (torch._int_mm), yardsticks the
+   port never calls.
 7. linalg on the card: run_hpl(n, policy, block=128, refine_steps=1) for
    native (cuBLAS DGEMM through the same driver), ozaki2-fp8/fast (K2 on
    every trailing update and TRSM fold) and ozaki2-fp8/accurate (K1 on the
    prepared pairs), each scaled residual <= 16 and each kernel's launch
-   count moving by the count the code predicts, with the time split between
-   the kernels, the rest of the GEMM layer and the host; each kernel at the
-   inputs of its first call at every distinct shape of the run (TRSM folds,
-   trailing updates, residuals) bitwise against its plain version; lu_factor
-   and lu_solve at n = 1024 on '+pallas' bitwise equal to '+core', in fast
-   (K2) and accurate (K1) mode; one Cholesky refine_solve of an SPD matrix at
+   count (and its prologue's or transpose's) moving by the count the code
+   predicts, with the time split between the kernels, the rest of the GEMM
+   layer and the host, and K2's time a launch; each kernel at the inputs of
+   its first call at every distinct shape of the run (TRSM folds, trailing
+   updates, residuals) bitwise against its plain version; lu_factor and
+   lu_solve at n = 1024 on '+pallas' bitwise equal to '+core', in fast (K2)
+   and accurate (K1) mode; one Cholesky refine_solve of an SPD matrix at
    n = 2048 (SYRK's plan x plan tiles on K2), its K2 calls checked the same
    way.
 8. the phase-split '+pallas+unfused' pipeline: K6 (quant_residues), K3
@@ -66,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -86,8 +99,8 @@ UNFUSED = "+pallas+unfused"
 K2_POLICIES = ("ozaki2-fp8/fast", "ozaki2-karatsuba/fast", "ozaki2-int8/fast")
 HPL_POLICIES = ("native", "ozaki2-fp8/fast", "ozaki2-fp8/accurate")
 HPL_BLOCK = 128
-#: Timed runs of K1 (~4 s each at 8192^3) and of the ozmm calls around it;
-#: 3 rather than 5 keeps the whole run near half its time limit.
+#: Timed runs of K1's plain version (~1.3 s each at 8192^3); 3 rather than 5
+#: keeps the whole run near half its time limit.
 K1_REPS = 3
 
 
@@ -230,6 +243,26 @@ def part_bytes(ms, m: int, k: int, n: int) -> int:
     return parts * (m * k + k * n) + 4 * (m + n) + 8 * m * n
 
 
+def library_products(sa, sbk, sb, ms):
+    """A function that runs the core's products of one call through PyTorch's
+    library calls, a yardstick the port never calls: per modulus the eq.
+    (12)/(8) e4m3 products by torch._scaled_mm (B column-major, from the
+    K-major stacks sbk), or the int8 product by torch._int_mm (B (k, n) from
+    the stack sb)."""
+    import torch
+
+    if ms.family == "int8":
+        pairs = [(sa[l], sb[l]) for l in range(ms.n)]
+        return lambda: [torch._int_mm(x, y) for x, y in pairs]
+    one = torch.ones((), dtype=torch.float32, device=sa[0].device)
+    pairs = []
+    for l, sq in enumerate(ms.is_square):
+        qs = ((0, 1), (1, 0), (1, 1)) if sq else ((0, 0), (1, 1), (2, 2))
+        pairs += [(sa[i][l], sbk[j][l].t()) for i, j in qs]
+    return lambda: [torch._scaled_mm(x, y, scale_a=one, scale_b=one, out_dtype=torch.float32,
+                                     use_fast_accum=False) for x, y in pairs]
+
+
 def check_equal(x, y, what: str) -> None:
     """Bitwise equality (torch.equal); on failure, name the first difference."""
     import torch
@@ -247,8 +280,8 @@ def check_equal(x, y, what: str) -> None:
                        f"{idx}: {x[idx].item()!r} vs {y[idx].item()!r}")
 
 
-def probe_operands(k: int, device):
-    """A (16, k) and B (k, 8) e4m3 patterns: all +16, alternating +-16 (two
+def probe_operands(k: int, device, rows: int = 16):
+    """A (rows, k) and B (k, 8) e4m3 patterns: all +16, alternating +-16 (two
     phases), +16 then +1 (a small tail after a large running sum), and
     seeded random integers in [-16, 16]."""
     import numpy as np
@@ -259,7 +292,7 @@ def probe_operands(k: int, device):
     alt = np.where(idx % 2 == 0, 16, -16)
     alt2 = np.where((idx // 2) % 2 == 0, 16, -16)
     tail = np.where(idx < k // 2, 16, 1)
-    a = rng.integers(-16, 17, (16, k))
+    a = rng.integers(-16, 17, (rows, k))
     a[0], a[1], a[2], a[3] = 16, alt, tail, alt2
     b = rng.integers(-16, 17, (k, 8))
     b[:, 0], b[:, 1], b[:, 2], b[:, 3] = 16, alt, tail, alt2
@@ -566,9 +599,12 @@ def main() -> int:
     from repro_torch.core.scaling import compute_scaling
     from repro_torch.kernels import build, stack_parts
     from repro_torch.kernels.fused import (KERNEL_TILE, fused_parts_args,
-                                           fused_raw_args, mma_probe, ops,
+                                           fused_raw_args, gemm_kc, mma_probe, ops,
                                            ozmm_fused_parts, ozmm_fused_parts_ref,
-                                           ozmm_fused_raw, ozmm_fused_raw_ref)
+                                           ozmm_fused_raw, ozmm_fused_raw_ref, part_planes,
+                                           raw_parts, raw_parts_plain, transpose_parts,
+                                           wgmma_probe)
+    from repro_torch.kernels.fused import kernel as fused_kernel
     from repro_torch.linalg import blas3
     from repro_torch.linalg import lu as lu_mod
     from repro_torch.linalg import solve as solve_mod
@@ -589,9 +625,13 @@ def main() -> int:
           f"{time.perf_counter() - tb:.1f} s", flush=True)
     for source in build.SOURCES:
         log = build.library_path(source).with_suffix(".log")
+        entry = "?"
         for line in log.read_text().splitlines() if log.exists() else ():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas {source}: {line.strip()}")
+            found = re.search(r"Compiling entry function '\w*?(\d+)([a-z_]+kernel)", line)
+            if found:
+                entry = found.group(2)
+            elif any(w in line for w in ("registers", "spill", "smem", "(C75")):
+                print(f"  ptxas {source} {entry}: {line.strip()}")
     t0 = phase("1 card+build", t0)
 
     # ---- 2. MMA probe -----------------------------------------------------
@@ -609,6 +649,27 @@ def main() -> int:
               f"{'exact' if chained_ok else f'NOT exact (max err {worst})'}")
     print(f"B1 probe: plain f32 accumulation across k steps would "
           f"{'also be' if chained_exact else 'NOT be'} exact up to k=65536", flush=True)
+    # the GEMM core's wgmma step: each k32 product into a fresh f32 fragment,
+    # promoted into an f32 sum, beside one f32 accumulator chained across
+    # every step; the longest exact chain bounds the core's promotion interval
+    longest = 65536 // 32  # the probe's range, unless a chain leaves the exact sum sooner
+    for k in (32, 1024, 4096, 65536):
+        a8, b8, want = probe_operands(k, dev, rows=64)
+        exact, chained, first_bad = wgmma_probe(a8, b8)
+        torch.cuda.synchronize()
+        check(torch.equal(exact.cpu().long(), want),
+              f"wgmma probe k={k}: the core's promoted k32 steps are not exact")
+        bad = first_bad.cpu()
+        chain = k // 32 if bool((bad < 0).all()) else int(bad[bad >= 0].min())
+        longest = min(longest, chain) if chain < k // 32 else longest
+        worst = (chained.cpu().double() - want.double()).abs().max().item()
+        print(f"  wgmma probe k={k}: promoted product exact; chained f32 exact for the first "
+              f"{chain} of {k // 32} k32 steps (final max err {worst})")
+    kc = gemm_kc()
+    print(f"B1 wgmma probe: longest exact chain {longest} k32 steps (up to k=65536); the "
+          f"core promotes every {kc} step(s)", flush=True)
+    check(kc <= longest, f"the core's promotion interval {kc} exceeds the longest exact "
+                         f"wgmma chain {longest}")
     t0 = phase("2 mma-probe", t0)
 
     # ---- 3. kernel vs plain version vs core, bitwise ---------------------
@@ -629,9 +690,19 @@ def main() -> int:
             check_equal(got, plain, f"{spec} {m}x{k}x{n}: kernel vs plain version")
             core = ozmm(a, b, spec + "+core")
             check_equal(got[:m, :n], core, f"{spec} {m}x{k}x{n}: kernel vs +core")
-            print(f"  {spec:24s} {m}x{k}x{n}: kernel == plain == core (bitwise)",
-                  flush=True)
-            del fa, got, plain, core
+            del got, plain, core
+            # the residue prologue alone: every plane it writes, both operands
+            for axis, (mh, ml, e, lexp) in enumerate((fa[:4], fa[4:8])):
+                got = raw_parts(mh, ml, e, lexp, fa[8], ms=ms, axis=axis)
+                plain = raw_parts_plain(mh, ml, e, lexp, fa[8], ms=ms, axis=axis)
+                for i, (g, w) in enumerate(zip(part_planes(got, ms), part_planes(plain, ms))):
+                    check_equal(as_bytes(g), as_bytes(w),
+                                f"{spec} {m}x{k}x{n}: prologue axis {axis} plane {i} vs plain")
+                del got, plain
+            print(f"  {spec:24s} {m}x{k}x{n}: K1 == plain == core, prologue (both operands) "
+                  "== plain (bitwise)", flush=True)
+            del fa
+            torch.cuda.empty_cache()
         del a, b
         torch.cuda.empty_cache()
     t0 = phase("3 kernel-vs-plain", t0)
@@ -642,11 +713,16 @@ def main() -> int:
     check(gemm._resolve_backend(parse_policy("ozaki2-fp8/accurate"), dev) == "pallas",
           "backend auto did not resolve to the kernel route on this card")
     ozmm_fused_raw.launches = ozmm_fused_parts.launches = 0
+    raw_parts.launches = transpose_parts.launches = 0
     out = {spec: ozmm(a, b, spec) for spec in ("ozaki2-fp8/accurate", "ozaki2-fp8/fast")}
     torch.cuda.synchronize()
-    main_launches = ozmm_fused_raw.launches
+    main_launches, prologue_launches = ozmm_fused_raw.launches, raw_parts.launches
     check(main_launches >= 1, "the main path never launched ozmm_fused_raw")
-    check(ozmm_fused_parts.launches == 0, "unprepared ozmm calls launched K2")
+    check(prologue_launches == 2 * main_launches,
+          f"the main path launched K1's prologue {prologue_launches} times for "
+          f"{main_launches} K1 calls, predicted {2 * main_launches}")
+    check(ozmm_fused_parts.launches == transpose_parts.launches == 0,
+          "unprepared ozmm calls launched K2")
     dgemm = torch.matmul(a, b)
     for spec, c in out.items():
         check(c.shape == (big, big) and bool(torch.isfinite(c).all()),
@@ -668,8 +744,8 @@ def main() -> int:
         rel = ((c - exact).abs() / exact.abs().clamp(min=1)).max().item()
         print(f"  {spec}: integer inputs 1024^3, max rel err {rel:.3e}, "
               f"{int((c != exact).sum())} of {c.numel()} not exact; rerun bitwise")
-    print(f"  main path: {main_launches} launches of ozmm_fused_raw for 2 ozmm "
-          "calls", flush=True)
+    print(f"  main path: {main_launches} launches of ozmm_fused_raw (its core) and "
+          f"{prologue_launches} of its residue prologue for 2 ozmm calls", flush=True)
     t0 = phase("4 main-path", t0)
 
     # ---- 5. timings -----------------------------------------------------------
@@ -684,13 +760,25 @@ def main() -> int:
         plain = ozmm_fused_raw_ref(*fa, ms=ms)
         max_err = (got - plain).abs().max().item()
         del got, plain
-        ms_kernel = cuda_ms(lambda: ozmm_fused_raw(*fa, ms=ms), K1_REPS)
+        ms_kernel = cuda_ms(lambda: ozmm_fused_raw(*fa, ms=ms))
         ms_plain = cuda_ms(lambda: ozmm_fused_raw_ref(*fa, ms=ms), K1_REPS)
+        # K1's own split: the residue prologue of both operands, then the
+        # core; and the core at k = one k-tile, where its per-tile epilogue
+        # (residues, Garner digits, Kahan sum) is most of the time
+        split = {"prologue_ms": cuda_ms(lambda: (raw_parts(*fa[:4], fa[8], ms=ms, axis=0),
+                                                 raw_parts(*fa[4:8], fa[8], ms=ms, axis=1)))}
+        for key, kk in (("core_ms", big), ("core_k128_ms", KERNEL_TILE[2])):
+            ft = fused_raw_args(a[:, :kk], scal.lmu, b[:kk], scal.lnu, ms, KERNEL_TILE)
+            pa = raw_parts(*ft[:4], ft[8], ms=ms, axis=0)
+            pb = raw_parts(*ft[4:8], ft[8], ms=ms, axis=1)
+            split[key] = cuda_ms(lambda: fused_kernel.gemm_core(
+                "ozmm_fused_raw", pa, pb, ft[3], ft[7], ms=ms))
+            del ft, pa, pb
         # where an ozmm call's time goes: scaling, raw frames + padding, kernel
-        layers = {"ozmm_ms": cuda_ms(lambda: ozmm(a, b, spec), K1_REPS),
+        layers = {"ozmm_ms": cuda_ms(lambda: ozmm(a, b, spec)),
                   "scaling_ms": cuda_ms(lambda: compute_scaling(a, b, ms, pol.mode)),
                   "frames_ms": cuda_ms(lambda: fused_raw_args(a, scal.lmu, b, scal.lnu,
-                                                              ms, KERNEL_TILE))}
+                                                              ms, KERNEL_TILE)), **split}
         n_bytes = sum(t.numel() * t.element_size() for t in fa) + big * big * 8
         products = ms.n if ms.family == "int8" else 3 * ms.n
         n_ops = products * 2 * big ** 3
@@ -704,7 +792,9 @@ def main() -> int:
             "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "library_ms": library_ms, **layers})
-        print(f"  {spec:20s} kernel {ms_kernel:.2f} ms, plain {ms_plain:.2f} ms, "
+        print(f"  {spec:20s} kernel {ms_kernel:.2f} ms (prologue {split['prologue_ms']:.2f} "
+              f"+ core {split['core_ms']:.2f}; the core at k = {KERNEL_TILE[2]} "
+              f"{split['core_k128_ms']:.2f}), plain {ms_plain:.2f} ms, "
               f"bound {max(t_bytes, t_ops):.2f} ms, cuBLAS DGEMM {library_ms:.2f} ms, "
               f"max|kernel-plain| {max_err}; ozmm {layers['ozmm_ms']:.2f} ms = scaling "
               f"{layers['scaling_ms']:.2f} + frames {layers['frames_ms']:.2f} + kernel "
@@ -747,6 +837,14 @@ def main() -> int:
                 ms_k2 = cuda_ms(lambda: ozmm_fused_parts(*fa, ms=ms))
                 ms_plain = cuda_ms(lambda: ozmm_fused_parts_ref(*fa, ms=ms))
                 ms_prepared = cuda_ms(lambda: ozmm(qa, qb, spec))
+                # K2's own split (B's transpose, the core) and the yardstick:
+                # the same 3N FP8 (N int8) products through cuBLASLt
+                pbk = transpose_parts(fa[1], ms=ms)
+                split = {"transpose_ms": cuda_ms(lambda: transpose_parts(fa[1], ms=ms)),
+                         "core_ms": cuda_ms(lambda: fused_kernel.gemm_core(
+                             "ozmm_fused_parts", fa[0], pbk, fa[2], fa[3], ms=ms))}
+                split["products_library_ms"] = cuda_ms(library_products(fa[0], pbk, fa[1], ms))
+                del pbk
                 products = ms.n if ms.family == "int8" else 3 * ms.n
                 t_ops = products * 2 * m * n * k / H100_FP8_OPS_PER_S * 1e3
                 t_bytes = part_bytes(ms, m, k, n) / H100_BYTES_PER_S * 1e3
@@ -759,10 +857,14 @@ def main() -> int:
                     "ms": ms_k2, "plain_ms": ms_plain, "bound_ms": max(t_ops, t_bytes),
                     "bound_by": "bytes" if t_bytes > t_ops else "operations",
                     "library_ms": library_ms, "k1_ms": k1_ms[spec],
-                    "prepared_ozmm_ms": ms_prepared})
-                print(f"  {spec:24s} K2 {ms_k2:.2f} ms (K1 {k1_ms[spec]:.2f} ms), plain "
+                    "prepared_ozmm_ms": ms_prepared, **split})
+                print(f"  {spec:24s} K2 {ms_k2:.2f} ms (transpose {split['transpose_ms']:.2f} "
+                      f"+ core {split['core_ms']:.2f}; K1 {k1_ms[spec]:.2f} ms), plain "
                       f"{ms_plain:.2f} ms, bound {max(t_ops, t_bytes):.2f} ms, cuBLAS DGEMM "
-                      f"{library_ms:.2f} ms; ozmm(qa, qb) {ms_prepared:.2f} ms", flush=True)
+                      f"{library_ms:.2f} ms, its {products} products through "
+                      f"{'torch._int_mm' if ms.family == 'int8' else 'torch._scaled_mm'} "
+                      f"{split['products_library_ms']:.2f} ms; ozmm(qa, qb) "
+                      f"{ms_prepared:.2f} ms", flush=True)
             del qa, qb, fa, got
             torch.cuda.empty_cache()
     del a, b, a_main, b_main
@@ -801,16 +903,19 @@ def main() -> int:
                 FirstCallPerShape(ops, "ozmm_fused_raw") as c1, \
                 FirstCallPerShape(ops, "ozmm_fused_parts") as c2:
             ozmm_fused_raw.launches = ozmm_fused_parts.launches = 0
+            raw_parts.launches = transpose_parts.launches = 0
             torch.cuda.synchronize()
             th = time.perf_counter()
             res = linalg.run_hpl(hn, spec, block=HPL_BLOCK, refine_steps=1, seed=args.seed)
             torch.cuda.synchronize()
             secs = time.perf_counter() - th
             launches = (ozmm_fused_raw.launches, ozmm_fused_parts.launches)
+            steps = (raw_parts.launches, transpose_parts.launches)
         row = {"policy": spec, "n": hn, "block": HPL_BLOCK, "seconds": secs,
                "gflops": linalg.hpl_flop_count(hn) / secs / 1e9,
                "scaled_residual": res["scaled_residual"], "k1_launches": launches[0],
-               "k2_launches": launches[1], "k1_s": t1.seconds(), "k2_s": t2.seconds(),
+               "k2_launches": launches[1], "prologue_launches": steps[0],
+               "transpose_launches": steps[1], "k1_s": t1.seconds(), "k2_s": t2.seconds(),
                "gemm_calls": len(tg.spans), "gemm_layer_s": tg.seconds(),
                "factor_s": t_factor.seconds(), "pivot_s": t_piv.seconds(),
                "rank1_s": t_rank1.seconds(), "u12_trsm_s": t_u12.seconds(),
@@ -828,9 +933,15 @@ def main() -> int:
               f"search {row['pivot_s']:.2f} + panel rank-1 updates {row['rank1_s']:.2f} + U12 "
               f"TRSM {row['u12_trsm_s']:.2f} + trailing updates {row['trailing_s']:.2f}; "
               f"2 LU solves {row['solves_s']:.2f} s", flush=True)
+        per_k2 = row["k2_s"] / launches[1] * 1e3 if launches[1] else 0.0
+        print(f"  HPL {spec}: K1's prologue {steps[0]} launches, K2's transpose {steps[1]}; "
+              f"K2 {per_k2:.3f} ms a launch", flush=True)
         check(res["passed"], f"HPL {spec}: scaled residual {res['scaled_residual']} > 16")
         check(launches == expect[spec],
               f"HPL {spec}: (K1, K2) launches {launches}, predicted {expect[spec]}")
+        check(steps == (2 * launches[0], launches[1]),
+              f"HPL {spec}: (prologue, transpose) launches {steps}, predicted "
+              f"{(2 * launches[0], launches[1])}")
         # each kernel at the inputs of its first call at every distinct shape
         # of this run (TRSM folds onto one column, every trailing update, the
         # refinement residuals), bitwise against its plain version

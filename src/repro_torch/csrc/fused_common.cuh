@@ -1,19 +1,9 @@
-// Device code shared by the two fused Ozaki-II kernels of repro_torch:
-// fused_raw.cu (K1, residues built on chip from raw frames) and
-// fused_parts.cu (K2, residue parts read from prepared stacks). The
-// phase-split kernels use parts of it too: residue_gemm.cu (K3/K4) the MMA
-// step, the fragment loads and the B transpose; requant_garner.cu (K5) and
-// quant_residues.cu (K6) the moduli parameter block.
-//
-// Both run the same schedule: one block of 8 warps per 64 x 64 output tile,
-// each warp a 32 x 16 sub-tile (2 x 2 mma tiles of m16n8); the moduli in the
-// OUTER loop; per modulus, the k loop fills the part buffers of one 64-deep
-// k-tile in shared memory (A row-major, B k-contiguous per column for the
-// .col operand), runs the products into 3 (fp8) or 1 (int8) int32
-// accumulators in registers, and at the end of k reduces them to one centred
-// int16 residue tile in shared memory. After the last modulus every thread
-// runs Garner, the Kahan sum and ldexp_wide on its elements and writes f64.
-// The kernels differ only in how a k-tile's parts reach shared memory.
+// Device code shared by the CUDA kernels of repro_torch: the moduli
+// parameter block (every kernel), the mma.sync FP8/int8 step, its fragment
+// loads and the B transpose in registers (K3/K4, residue_gemm.cu, and the
+// mma.sync probe of fused_raw.cu), and the f64 epilogue of the fused kernels
+// (finalize: Garner digits, Kahan sum, ldexp_wide), which the Hopper GEMM
+// core of K1/K2 (hopper_gemm.cuh) runs on each element of its tile.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,15 +14,14 @@
 
 namespace fused {
 
-constexpr int BM = 64, BN = 64, BK = 64;  // KERNEL_TILE in kernels/fused/kernel.py
-constexpr int THREADS = 256;              // 8 warps: 2 along m x 4 along n
-constexpr int LDS = BK + 16;              // part row stride (bytes): conflict-free fragment loads
-constexpr int PART = 64 * LDS;            // one part buffer (BM == BN == 64 rows)
-constexpr int MAXN = 20;                  // MAX_MODULI in kernels/fused/kernel.py
+constexpr int BK = 64;        // k-tile of the mma.sync kernels (K3/K4)
+constexpr int THREADS = 256;  // block size of the kernels other than the GEMM core
+constexpr int LDS = BK + 16;  // part row stride (bytes): conflict-free fragment loads
+constexpr int MAXN = 20;      // MAX_MODULI in kernels/launch.py
 constexpr int KIND_SQUARE = 0, KIND_KARATSUBA = 1, KIND_INT8 = 2;
 
 // e4m3 parts per modulus and operand (a square modulus has no hs part), and
-// int32 accumulators per modulus.
+// accumulators (products) per modulus.
 template <int KIND>
 constexpr int kParts = KIND == KIND_KARATSUBA ? 3 : (KIND == KIND_SQUARE ? 2 : 1);
 template <int KIND>
@@ -73,8 +62,8 @@ inline Moduli make_moduli(int num_moduli, const int* ps, const int* split_s, con
 __device__ __forceinline__ void copy_moduli(Moduli& dst, const Moduli& src) {
   const int* s = reinterpret_cast<const int*>(&src);
   int* d = reinterpret_cast<int*>(&dst);
-  for (int i = threadIdx.x; i < static_cast<int>(sizeof(Moduli) / sizeof(int)); i += THREADS)
-    d[i] = s[i];
+  constexpr int words = sizeof(Moduli) / sizeof(int);
+  for (int i = threadIdx.x; i < words; i += blockDim.x) d[i] = s[i];
 }
 
 __device__ __forceinline__ void mma_e4m3(float (&d)[4], const uint32_t (&a)[4],
@@ -138,98 +127,66 @@ __device__ __forceinline__ void store_b_transposed(uint8_t* dst, const uint32_t 
   }
 }
 
-// The products of one k-tile whose parts sit in a_s ([3][BM][LDS]) and b_s
-// ([3][BN][LDS], k-contiguous per column): eq. (12) for a square modulus
-// (A1B2, A2B1, A2B2), eq. (8) for a Karatsuba modulus (A1B1, A2B2,
-// (A1+A2)(B1+B2)), the single product for int8.
-template <int KIND>
-__device__ __forceinline__ void mma_tile(int (&acc)[kAccs<KIND>][2][2][4], const uint8_t* a_s,
-                                         const uint8_t* b_s) {
-  constexpr int NP = kParts<KIND>;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 16;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 32) {
-    uint32_t af[NP][2][4], bf[NP][2][2];
-#pragma unroll
-    for (int q = 0; q < NP; ++q) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        load_a(af[q][i], a_s + q * PART + (wm + 16 * i) * LDS + kk, lane);
-        load_b(bf[q][i], b_s + q * PART + (wn + 8 * i) * LDS + kk, lane);
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int ni = 0; ni < 2; ++ni) {
-        if constexpr (KIND == KIND_INT8) {
-          mma_s8(acc[0][mi][ni], af[0][mi], bf[0][ni]);
-        } else if constexpr (KIND == KIND_SQUARE) {
-          mma_k32_exact(acc[0][mi][ni], af[0][mi], bf[1][ni]);
-          mma_k32_exact(acc[1][mi][ni], af[1][mi], bf[0][ni]);
-          mma_k32_exact(acc[2][mi][ni], af[1][mi], bf[1][ni]);
-        } else {
-#pragma unroll
-          for (int q = 0; q < 3; ++q) mma_k32_exact(acc[q][mi][ni], af[q][mi], bf[q][ni]);
-        }
-      }
-    }
-  }
+// ozaki::cmod(x, p) for |x| < 2^22 and p < 2^11 (the Garner steps: |x| <=
+// 1089^2), from ip = 1/p in f32 instead of an integer division: x * ip is
+// within 2^-9 of x / p, so its floor is off by at most one, and one
+// correction gives the exact floor residue; then the same centring.
+__device__ __forceinline__ int cmod_small(int x, int p, float ip) {
+  int r = x - __float2int_rd(__fmul_rn(static_cast<float>(x), ip)) * p;
+  r += r < 0 ? p : (r >= p ? -p : 0);
+  return ozaki::centered(r, p);
 }
 
-// End of one modulus' k loop: the centred residue of the tile's product
-// into res (BM x BN int16).
-template <int KIND>
-__device__ __forceinline__ void store_residue(const int (&acc)[kAccs<KIND>][2][2][4], int p,
-                                              int s, int16_t* res) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 16;
-  const int g = lane >> 2, t = lane & 3;
+// Garner digits, Kahan f64 sum in radix order, ldexp_wide (_finalize) of
+// E elements of C, interleaved step by step so that their dependency chains
+// overlap; each element's own order of operations is the reference's. t[u]
+// holds element u's centred residues in radix order (t[u][d] belongs to
+// modulus ps[radix_order[d]]), e[u] is -(lmu_i + lnu_j). The loops run to
+// MAXN with a guard on N, so every index is a constant and the digits stay
+// in registers.
+template <int E>
+__device__ __forceinline__ void finalize(const Moduli& M, const int (&t)[E][MAXN],
+                                         const int (&e)[E], double (&v)[E]) {
+  const int n = M.n;
+  int digits[E][MAXN];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+  for (int d = 0; d < MAXN; ++d) {
+    if (d < n) {
+      const int pd = M.radix_ps[d];
+      const float ip = __frcp_rn(static_cast<float>(pd));
+      int x[E];
 #pragma unroll
-    for (int ni = 0; ni < 2; ++ni) {
+      for (int u = 0; u < E; ++u) x[u] = t[u][d];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int row = wm + 16 * mi + g + 8 * (q >> 1);
-        const int col = wn + 8 * ni + 2 * t + (q & 1);
-        int c;
-        if constexpr (KIND == KIND_INT8) {
-          c = ozaki::cmod(acc[0][mi][ni][q], p);
-        } else {
-          c = ozaki::combine(acc[0][mi][ni][q], acc[1][mi][ni][q], acc[2][mi][ni][q], p,
-                             KIND == KIND_SQUARE, s);
-        }
-        res[row * BN + col] = static_cast<int16_t>(c);
+      for (int j = 0; j < d; ++j) {  // ozaki::garner_digit, E at a time
+        const int inv = M.inv[j * MAXN + d];
+#pragma unroll
+        for (int u = 0; u < E; ++u) x[u] = cmod_small((x[u] - digits[u][j]) * inv, pd, ip);
+      }
+#pragma unroll
+      for (int u = 0; u < E; ++u) digits[u][d] = cmod_small(x[u], pd, ip);
+    }
+  }
+  double sum[E], comp[E];
+#pragma unroll
+  for (int u = 0; u < E; ++u) {
+    sum[u] = __dmul_rn(static_cast<double>(digits[u][0]), 0.0);
+    comp[u] = sum[u];
+  }
+#pragma unroll
+  for (int d = 0; d < MAXN; ++d) {
+    if (d < n) {
+#pragma unroll
+      for (int u = 0; u < E; ++u) {
+        const double term = __fma_rn(static_cast<double>(digits[u][d]), M.w[d], -comp[u]);
+        const double next = __dadd_rn(sum[u], term);
+        comp[u] = __dsub_rn(__dsub_rn(next, sum[u]), term);
+        sum[u] = next;
       }
     }
   }
-}
-
-// Garner digits, Kahan f64 sum in radix order, ldexp_wide (_finalize), from
-// the N residue tiles res_s ([N][BM][BN]) to the f64 tile of C at
-// (row0, col0); n is the row stride of C.
-__device__ __forceinline__ void finalize(const Moduli& M, const int16_t* res_s, const int* lmu,
-                                         const int* lnu, double* out, int row0, int col0,
-                                         int n) {
-  for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-    const int r = i / BN, c = i % BN;
-    int digits[MAXN];
-    for (int d = 0; d < M.n; ++d) {
-      digits[d] = ozaki::garner_digit(res_s[M.radix_order[d] * BM * BN + i], M.radix_ps[d],
-                                      digits, &M.inv[d], MAXN, d);
-    }
-    double sum = __dmul_rn(static_cast<double>(digits[0]), 0.0), comp = sum;
-    for (int d = 0; d < M.n; ++d) {
-      const double term = __fma_rn(static_cast<double>(digits[d]), M.w[d], -comp);
-      const double next = __dadd_rn(sum, term);
-      comp = __dsub_rn(__dsub_rn(next, sum), term);
-      sum = next;
-    }
-    out[static_cast<size_t>(row0 + r) * n + col0 + c] =
-        ozaki::ldexp_wide(sum, -(lmu[row0 + r] + lnu[col0 + c]));
-  }
+#pragma unroll
+  for (int u = 0; u < E; ++u) v[u] = ozaki::ldexp_wide(sum[u], e[u]);
 }
 
 // Runs fn with `device` current and restores the caller's device after.

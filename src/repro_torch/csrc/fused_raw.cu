@@ -1,7 +1,7 @@
-// The whole Ozaki-II emulated DGEMM from raw frames in one kernel, for Hopper
-// (sm_90a). Replaces repro/kernels/fused/kernel.py::ozmm_fused_raw (body
-// _kernel_raw, with _residue_tile, _split_fp8, _mma_fp8/_dot_i32 and
-// _finalize), and computes what it computes:
+// The whole Ozaki-II emulated DGEMM from raw frames, for Hopper (sm_90a).
+// Replaces repro/kernels/fused/kernel.py::ozmm_fused_raw (body _kernel_raw,
+// with _residue_tile, _split_fp8, _mma_fp8/_dot_i32 and _finalize), and
+// computes what it computes:
 //
 //   per operand element, x = (mh*2^26 + ml) * 2^e (ops.decompose_raw) scaled
 //   by the pairing exponent (lmu per row of A, lnu per column of B) and
@@ -9,42 +9,44 @@
 //   eq. (8)/(12) products (or the single int8 product) -> combine -> balanced
 //   Garner digits -> Kahan f64 sum -> ldexp_wide -> C.
 //
-// Schedule (fused_common.cuh, shared with K2 = fused_parts.cu): one block of
-// 8 warps per 64 x 64 output tile, the moduli in the OUTER loop, since the
-// TPU schedule's 3N resident int32 accumulator tiles (2.25 MiB at N = 12)
-// fit no SM. Here, for each modulus the block walks k in steps of 64 and
-// rebuilds the residue parts of its A and B k-tiles in shared memory (B
-// stored k-contiguous per column for the .col operand); the products, the
-// per-modulus int16 residue tile (N x 64 x 64 x 2 B, 96 KiB at N = 12) and
-// the Garner / Kahan / ldexp_wide epilogue are the shared code. Every digit
-// plane is an exact integer, so any schedule gives the bits of the
-// reference (docs/kernels.md, "Garner accumulation").
+// Two steps on the stream, both hand-written:
 //
-// Exactness. FP8 products use mma.sync m16n8k32 e4m3 with f32 accumulation,
-// each k32 step started from a ZERO fragment, converted with __float2int_rn
-// and added to int32: one step sums at most 32*16*16 = 2^13 in magnitude, so
-// it is exact even if Hopper's FP8 accumulator keeps fewer than 24 bits.
-// int8 products use the s8 mma with s32 accumulation (exact). The Kahan
-// term x*w - c is ONE fused multiply-add (__fma_rn), the rounding of the
-// reference on the CPU, where XLA contracts it; every other f64 step is
-// spelled __dadd_rn/__dsub_rn/__dmul_rn, and the library is built without
-// --use_fast_math and with --fmad=false, so nothing else contracts.
+// 1. The residue prologue (raw_parts_kernel), once per operand: one thread
+//    per 16 elements of a 64 x 64 tile computes every modulus' residue from
+//    the raw frames, each ONCE (N(mk + kn) residues in all), and writes the
+//    parts into K-major stacks: A's (N, m, k) as stored, B's (N, n, k), the
+//    transpose done in registers (a thread owns 16 k of one column), since
+//    wgmma takes 8-bit operands only K-major. A square modulus writes no hs
+//    part. The TPU kernel recomputed each tile's residues inside its MMA
+//    loop to keep them out of HBM; on this card that recompute cost
+//    N*mnk*(1/64 + 1/64) residues and bounded the kernel, while the parts of
+//    one operand at 8192^2 are 2.4 GB, about 1 ms of HBM traffic.
+// 2. The GEMM core of hopper_gemm.cuh (shared with K2): TMA ring, wgmma,
+//    per-modulus residues into a scratch, finalize.
 //
-// Bound. The work is 3N * 2mnk FP8 operations (N * 2mnk int8 for the int8
-// family) against the card's dense FP8/int8 tensor rate, plus the integer
-// residue work: every block recomputes the residues of its whole A row-panel
-// and B column-panel for every modulus, N*mnk*(1/64 + 1/64) residues in all,
-// each a few dozen integer instructions with three runtime `% p`. That
-// integer work, not the tensor cores, bounds this design; it keeps the
-// residues out of device memory (only the raw frames are read) at that
-// price. Barrett reduction and residues hoisted out of the per-tile
-// recompute, then wgmma/TMA, are the queued work (ROADMAP).
+// The 2^e-mod-p tables (N x 1024 int32) sit in dynamic shared memory.
+// Exactness: the residue arithmetic is exact integer arithmetic (each `mod
+// p` from a reciprocal of p and one correction),
+// the splits round as core/quantize.py does, the products are exact by
+// promotion (hopper_gemm.cuh), the Kahan term is ONE __fma_rn (the
+// reference's XLA contracts it) and the library is built with --fmad=false.
+//
+// Bound. 3N * 2mnk FP8 operations (N * 2mnk int8) against the dense tensor
+// rate: 20.0 ms at 8192^3, N = 12. Bytes: the frames (12 bytes an element)
+// in and the f64 C out, plus what the steps move between them: the parts
+// (up to 3N bytes an element written, then read), the residue scratch (2N
+// bytes an element of C, written and read back), and L2 traffic
+// 3N * mnk * (1/128 + 1/128) for the core's 128 x 128 cluster tiles. The
+// prologue is integer-bound (1.6e9 residues at 8192^2, N = 12); the core is
+// bound by each warpgroup's alternation of wgmma and promotion adds
+// (hopper_gemm.cuh). This file also holds the MMA probes of chip_smoke.py
+// phase 2: mma.sync (the K3/K4 step) and wgmma (the core's step).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "fused_common.cuh"
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -52,111 +54,125 @@ using namespace fused;
 
 constexpr int TABLE_LEN = 1024;  // moduli.POW2_TABLE_LEN
 constexpr int MANT_SPLIT = 26;
+constexpr int PT = 64;  // prologue tile: 64 rows x 64 k, 16 k per thread
+
+// x mod p for 0 <= x < 2^27 (a limb) from ip = 1/p in f64: x * ip is within
+// 2^-25 of x / p, so its floor is off by at most one, which one correction
+// undoes; the exact `%` at a few instructions instead of a division.
+__device__ __forceinline__ int mod_limb(int x, int p, double ip) {
+  const int r = x - __double2int_rd(__dmul_rn(static_cast<double>(x), ip)) * p;
+  return r < 0 ? r + p : (r >= p ? r - p : r);
+}
 
 // Centred residue mod p of trunc(2^sc * (mh*2^26 + ml)) (_residue_tile):
 // negative sc truncates by shifts of the magnitudes, the high-limb shift
 // clipped to 31 (a shift of 32 or more is UB); positive sc multiplies by
 // 2^sc mod p from the table, indices clipped to it; the sign comes back last.
-__device__ __forceinline__ int residue(int mh, int ml, int sc, int p, const int* pw) {
-  const unsigned amh = static_cast<unsigned>(abs(mh)), aml = static_cast<unsigned>(abs(ml));
+// ip = 1/p; the weighted sum is < 2 * 1089^2 < 2^22, so its reduction is
+// fused_common.cuh's cmod_small.
+__device__ __forceinline__ int residue(int mh, int ml, int sc, int p, double ip,
+                                       const int* pw) {
+  const int amh = abs(mh), aml = abs(ml);
   const int sg = mh != 0 ? (mh > 0 ? 1 : -1) : (ml > 0) - (ml < 0);
   const int t = max(-sc, 0);
   const int tl = min(t, MANT_SPLIT);
   const int th = min(max(t - MANT_SPLIT, 0), 31);
   const int sp = max(sc, 0);
-  const unsigned wh = static_cast<unsigned>(pw[min(MANT_SPLIT - tl + sp, TABLE_LEN - 1)]);
-  const unsigned wl = static_cast<unsigned>(pw[min(sp, TABLE_LEN - 1)]);
-  const unsigned up = static_cast<unsigned>(p);
-  const int r = static_cast<int>((((amh >> th) % up) * wh + ((aml >> tl) % up) * wl) % up);
-  return ozaki::cmod(sg * r, p);
+  const int wh = pw[min(MANT_SPLIT - tl + sp, TABLE_LEN - 1)];
+  const int wl = pw[min(sp, TABLE_LEN - 1)];
+  const int x = mod_limb(amh >> th, p, ip) * wh + mod_limb(aml >> tl, p, ip) * wl;
+  return cmod_small(sg * cmod_small(x, p, static_cast<float>(ip)), p, static_cast<float>(ip));
 }
 
-// Residue -> parts at dst, dst + PART, dst + 2*PART (_split_fp8): (hi, lo) by
-// a round-half-even split for a square modulus p = s^2, (hi, lo, hi + lo) by a
-// ceil split for a Karatsuba modulus, the residue itself for int8.
+// Residue -> part bytes (_split_fp8): (hi, lo) by a round-half-even split for
+// a square modulus p = s^2, (hi, lo, hi + lo) by a ceil split for a
+// Karatsuba modulus, the residue itself for int8.
 template <int KIND>
-__device__ __forceinline__ void store_parts(uint8_t* dst, int r, int s) {
+__device__ __forceinline__ void store_parts(uint32_t (&b)[3], int r, int s) {
   if constexpr (KIND == KIND_INT8) {
-    dst[0] = static_cast<uint8_t>(static_cast<int8_t>(r));
+    b[0] = static_cast<uint8_t>(static_cast<int8_t>(r));
   } else if constexpr (KIND == KIND_SQUARE) {
     const int hi = ozaki::split_square_hi(r, s);
-    dst[0] = ozaki::e4m3(hi);
-    dst[PART] = ozaki::e4m3(r - s * hi);
+    b[0] = ozaki::e4m3(hi);
+    b[1] = ozaki::e4m3(r - s * hi);
   } else {
     const int hi = ozaki::split_karatsuba_hi(r);
     const int lo = r - 16 * hi;
-    dst[0] = ozaki::e4m3(hi);
-    dst[PART] = ozaki::e4m3(lo);
-    dst[2 * PART] = ozaki::e4m3(hi + lo);
+    b[0] = ozaki::e4m3(hi);
+    b[1] = ozaki::e4m3(lo);
+    b[2] = ozaki::e4m3(hi + lo);
   }
 }
 
-struct Operands {
-  const int* mh_a; const int* ml_a; const int* e_a; const int* lmu;
-  const int* mh_b; const int* ml_b; const int* e_b; const int* lnu;
-  int k, n;  // contraction length, columns of B / C
-};
-
-// One modulus over the whole contraction: residue parts of each k-tile built
-// in shared memory, products into registers, then the centred residue of the
-// tile's product into res (BM x BN int16).
+// One modulus' parts of a thread's 16 elements (scaled exponents vs), 16
+// bytes into each of the kind's part planes at dst[q] + o.
 template <int KIND>
-__device__ __forceinline__ void modulus_pass(const Operands& op, int row0, int col0, int p,
-                                             int s, const int* tbl_s, uint8_t* a_s,
-                                             uint8_t* b_s, int16_t* res) {
-  int acc[kAccs<KIND>][2][2][4] = {};
-  for (int k0 = 0; k0 < op.k; k0 += BK) {
-    __syncthreads();  // the table is loaded; the previous k-tile's parts are consumed
-    for (int i = threadIdx.x; i < BM * BK; i += THREADS) {
-      const int r = i / BK, c = i % BK;
-      const size_t gi = static_cast<size_t>(row0 + r) * op.k + k0 + c;
-      const int x = residue(op.mh_a[gi], op.ml_a[gi], op.e_a[gi] + op.lmu[row0 + r], p, tbl_s);
-      store_parts<KIND>(a_s + r * LDS + c, x, s);
-    }
-    for (int i = threadIdx.x; i < BK * BN; i += THREADS) {
-      const int kk = i / BN, c = i % BN;
-      const size_t gi = static_cast<size_t>(k0 + kk) * op.n + col0 + c;
-      const int x = residue(op.mh_b[gi], op.ml_b[gi], op.e_b[gi] + op.lnu[col0 + c], p, tbl_s);
-      store_parts<KIND>(b_s + c * LDS + kk, x, s);
-    }
-    __syncthreads();
-    mma_tile<KIND>(acc, a_s, b_s);
+__device__ __forceinline__ void modulus_parts(const int (&vh)[16], const int (&vl)[16],
+                                              const int (&vs)[16], int p, int s, const int* pw,
+                                              uint8_t* const (&dst)[3], size_t o) {
+  constexpr int NP = kParts<KIND>;
+  const double ip = __drcp_rn(static_cast<double>(p));
+  uint32_t w[NP][4] = {};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    uint32_t b[3];
+    store_parts<KIND>(b, residue(vh[j], vl[j], vs[j], p, ip, pw), s);
+#pragma unroll
+    for (int q = 0; q < NP; ++q) w[q][j >> 2] |= b[q] << (8 * (j & 3));
   }
-  store_residue<KIND>(acc, p, s, res);
+#pragma unroll
+  for (int q = 0; q < NP; ++q)
+    *reinterpret_cast<uint4*>(dst[q] + o) = make_uint4(w[q][0], w[q][1], w[q][2], w[q][3]);
 }
 
+// The parts of one operand, K-major: rows x kdim frames (TRANS = false, A:
+// row r at r * kdim) or kdim x rows frames (TRANS = true, B: column r at
+// k * rows + r), lexp the pairing exponent of each row r, out (N, rows,
+// kdim) planes hi, lo, hs (int8: hi only).
+template <bool TRANS>
 __global__ void __launch_bounds__(THREADS)
-fused_raw_kernel(Operands op, const int* __restrict__ tbl, double* __restrict__ out,
-                 const __grid_constant__ Moduli mod) {
-  extern __shared__ __align__(16) uint8_t smem[];
+raw_parts_kernel(const int* __restrict__ mh, const int* __restrict__ ml,
+                 const int* __restrict__ e, const int* __restrict__ lexp,
+                 const int* __restrict__ tbl, uint8_t* hi, uint8_t* lo, uint8_t* hs, int rows,
+                 int kdim, const __grid_constant__ Moduli mod) {
+  extern __shared__ int tbl_s[];  // [N][TABLE_LEN]
   __shared__ Moduli M;
   copy_moduli(M, mod);
+  for (int i = threadIdx.x; i < mod.n * TABLE_LEN; i += THREADS) tbl_s[i] = tbl[i];
   __syncthreads();
-  const int n_mod = M.n;
-  int16_t* res_s = reinterpret_cast<int16_t*>(smem);                      // [N][BM][BN]
-  int* tbl_s = reinterpret_cast<int*>(smem + n_mod * BM * BN * 2);        // [TABLE_LEN]
-  uint8_t* a_s = reinterpret_cast<uint8_t*>(tbl_s + TABLE_LEN);           // [3][BM][LDS]
-  uint8_t* b_s = a_s + 3 * PART;                                          // [3][BN][LDS]
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-
-  for (int l = 0; l < n_mod; ++l) {
-    for (int i = threadIdx.x; i < TABLE_LEN; i += THREADS) tbl_s[i] = tbl[l * TABLE_LEN + i];
-    int16_t* res = res_s + l * BM * BN;
+  // A: 4 threads cover a row's 64 k; B: 64 threads cover 64 columns of one
+  // k row, so each warp's frame loads are contiguous either way
+  const int r = TRANS ? (threadIdx.x & 63) : (threadIdx.x >> 2);
+  const int kq = TRANS ? (threadIdx.x >> 6) : (threadIdx.x & 3);
+  const int row = blockIdx.y * PT + r, k0 = blockIdx.x * PT + 16 * kq;
+  const int le = lexp[row];
+  int vh[16], vl[16], vs[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const size_t gi = TRANS ? static_cast<size_t>(k0 + j) * rows + row
+                            : static_cast<size_t>(row) * kdim + k0 + j;
+    vh[j] = mh[gi];
+    vl[j] = ml[gi];
+    vs[j] = e[gi] + le;
+  }
+  uint8_t* const dst[3] = {hi, lo, hs};
+  const size_t plane = static_cast<size_t>(rows) * kdim;
+  const size_t at = static_cast<size_t>(row) * kdim + k0;
+  for (int l = 0; l < M.n; ++l) {
+    const int* pw = tbl_s + l * TABLE_LEN;
     const int p = M.ps[l], s = M.split_s[l];
+    const size_t o = l * plane + at;
     switch (M.kind[l]) {
       case KIND_SQUARE:
-        modulus_pass<KIND_SQUARE>(op, row0, col0, p, s, tbl_s, a_s, b_s, res);
+        modulus_parts<KIND_SQUARE>(vh, vl, vs, p, s, pw, dst, o);
         break;
       case KIND_KARATSUBA:
-        modulus_pass<KIND_KARATSUBA>(op, row0, col0, p, s, tbl_s, a_s, b_s, res);
+        modulus_parts<KIND_KARATSUBA>(vh, vl, vs, p, s, pw, dst, o);
         break;
       default:
-        modulus_pass<KIND_INT8>(op, row0, col0, p, s, tbl_s, a_s, b_s, res);
+        modulus_parts<KIND_INT8>(vh, vl, vs, p, s, pw, dst, o);
     }
   }
-  __syncthreads();
-
-  finalize(M, res_s, op.lmu, op.lnu, out, row0, col0, op.n);
 }
 
 __global__ void mma_probe_kernel(const uint8_t* a, const uint8_t* bt, int k, int* exact,
@@ -188,40 +204,129 @@ __global__ void mma_probe_kernel(const uint8_t* a, const uint8_t* bt, int k, int
   }
 }
 
+// e4m3 m64n8k32 into a fresh fragment (scale-d = 0) and chained onto d.
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t da, uint64_t db, int chain) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.f32.e4m3.e4m3 {%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(chain));
+}
+
+// One warpgroup runs the core's k32 step (a fresh e4m3 m64n8k32 fragment,
+// added into f32: promotion every KC = 1 step) and, beside it, one f32
+// accumulator chained across every step, over A (64 x k) and B^T (8 x k)
+// laid out in shared memory as the core's TMA lays them (128-byte swizzle).
+// `first_bad` gets the first k32 step at which the chain left the exact
+// sum (-1: never).
+__global__ void __launch_bounds__(128)
+wgmma_probe_kernel(const uint8_t* a, const uint8_t* bt, int k, int* exact, float* chained,
+                   int* first_bad) {
+  __shared__ uint8_t raw[1024 + 72 * 128];
+  const uint32_t base = (hopper::smem_addr(raw) + 1023) & ~1023u;
+  uint8_t* tile = raw + (base - hopper::smem_addr(raw));  // A rows 0..63, B rows 64..71
+  float acc[4] = {0.f, 0.f, 0.f, 0.f}, c[4] = {0.f, 0.f, 0.f, 0.f};
+  int bad[4] = {-1, -1, -1, -1};
+  for (int k0 = 0; k0 < k; k0 += 128) {
+    __syncthreads();  // the previous chunk's products are done
+    for (int i = threadIdx.x; i < 72 * 8; i += 128) {
+      const int r = i >> 3, ch = i & 7;
+      const uint8_t* src = r < 64 ? a + static_cast<size_t>(r) * k
+                                  : bt + static_cast<size_t>(r - 64) * k;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (k0 + 16 * ch < k) v = *reinterpret_cast<const uint4*>(src + k0 + 16 * ch);
+      *reinterpret_cast<uint4*>(tile + r * 128 + 16 * (ch ^ (r & 7))) = v;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    for (int kk = 0; kk < 128 && k0 + kk < k; kk += 32) {
+      const uint64_t da = hopper::desc_k128(base + kk);
+      const uint64_t db = hopper::desc_k128(base + 64 * 128 + kk);
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+      hopper::wgmma_fence();
+      wgmma_n8(f, da, db, 0);
+      wgmma_n8(c, da, db, 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      const int step = (k0 + kk) / 32;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[q] = __fadd_rn(acc[q], f[q]);
+        if (bad[q] < 0 && c[q] != acc[q]) bad[q] = step;
+      }
+    }
+  }
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int idx = (16 * w + (lane >> 2) + 8 * (q >> 1)) * 8 + 2 * (lane & 3) + (q & 1);
+    exact[idx] = __float2int_rn(acc[q]);
+    chained[idx] = c[q];
+    first_bad[idx] = bad[q];
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`: C (m x n, f64) from the raw frames of A (m x k) and
-// B (k x n), lmu (m), lnu (n) and the 2^e-mod-p tables (N x 1024), all int32
-// device pointers; the moduli constants are host arrays of num_moduli
+// Launch the residue prologue on `stream`: the K-major parts (N, rows, kdim)
+// of one operand into hi, lo, hs (fp8 families; hs planes of square moduli
+// left unwritten) or hi (int8; lo = hs = NULL), from its raw frames mh, ml, e
+// (rows x kdim, or kdim x rows when trans != 0), the pairing exponents lexp
+// (rows) and the 2^e-mod-p tables (N x 1024), all device pointers; rows and
+// kdim multiples of 64. The moduli constants are host arrays of num_moduli
 // entries (inv: num_moduli x num_moduli, row-major). Returns the CUDA error
 // of the launch (0 on success).
-int ozmm_fused_raw_launch(const int* mh_a, const int* ml_a, const int* e_a, const int* lmu,
-                          const int* mh_b, const int* ml_b, const int* e_b, const int* lnu,
-                          const int* tbl, double* out, int m, int n, int k, int num_moduli,
-                          int device, const int* ps, const int* split_s, const int* kind,
-                          const int* radix_order, const int* radix_ps, const int* inv,
-                          const double* weights, void* stream) {
-  if (num_moduli < 1 || num_moduli > MAXN || m <= 0 || n <= 0 || k <= 0 || m % BM ||
-      n % BN || k % BK || m / BM > 65535)
+int raw_parts_launch(const int* mh, const int* ml, const int* e, const int* lexp, const int* tbl,
+                     uint8_t* hi, uint8_t* lo, uint8_t* hs, int rows, int kdim, int trans,
+                     int num_moduli, int device, const int* ps, const int* split_s,
+                     const int* kind, const int* radix_order, const int* radix_ps,
+                     const int* inv, const double* weights, void* stream) {
+  if (num_moduli < 1 || num_moduli > MAXN || rows <= 0 || kdim <= 0 || rows % PT ||
+      kdim % PT || rows / PT > 65535 || !hi)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool int8 = kind[0] == KIND_INT8;
+  if (int8 ? (lo || hs) : !(lo && hs)) return static_cast<int>(cudaErrorInvalidValue);
   const Moduli mod =
       make_moduli(num_moduli, ps, split_s, kind, radix_order, radix_ps, inv, weights);
-  const Operands op{mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, k, n};
-  const size_t smem = static_cast<size_t>(num_moduli) * BM * BN * sizeof(int16_t) +
-                      TABLE_LEN * sizeof(int) + 6 * PART;
+  const size_t smem = static_cast<size_t>(num_moduli) * TABLE_LEN * sizeof(int);
   return on_device(device, [&]() {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_raw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    auto kern = trans ? raw_parts_kernel<true> : raw_parts_kernel<false>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    fused_raw_kernel<<<dim3(n / BN, m / BM), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        op, tbl, out, mod);
+    kern<<<dim3(kdim / PT, rows / PT), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        mh, ml, e, lexp, tbl, hi, lo, hs, rows, kdim, mod);
     return cudaGetLastError();
   });
 }
 
-// One warp runs the kernel's k32 FP8 step over a (16 x k) e4m3 A (row-major)
+// Launch the GEMM core (hopper_gemm.cuh) on `stream`: C (m x n, f64) from the
+// K-major parts of A ((N, m, k): a_hi, a_lo, a_hs, int8 in a_hi with a_lo =
+// a_hs = NULL) and of B ((N, n, k), the same way), lmu (m), lnu (n), an
+// (N, m, n) int16 scratch; m, n, k multiples of (128, 128, 128). Returns the
+// CUDA error (0 on success).
+int ozmm_fused_raw_launch(const uint8_t* a_hi, const uint8_t* a_lo, const uint8_t* a_hs,
+                          const uint8_t* b_hi, const uint8_t* b_lo, const uint8_t* b_hs,
+                          const int* lmu, const int* lnu, int16_t* res, double* out, int m,
+                          int n, int k, int num_moduli, int device, const int* ps,
+                          const int* split_s, const int* kind, const int* radix_order,
+                          const int* radix_ps, const int* inv, const double* weights,
+                          void* stream) {
+  if (num_moduli < 1 || num_moduli > MAXN) return static_cast<int>(cudaErrorInvalidValue);
+  const uint8_t* const a[3] = {a_hi, a_lo, a_hs};
+  const uint8_t* const b[3] = {b_hi, b_lo, b_hs};
+  return hopper::gemm_core_launch(
+      a, b, lmu, lnu, res, out, m, n, k,
+      make_moduli(num_moduli, ps, split_s, kind, radix_order, radix_ps, inv, weights), device,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The core's promotion interval in k32 steps (hopper::KC).
+int gemm_core_kc() { return hopper::KC; }
+
+// One warp runs the K3/K4 k32 FP8 step over a (16 x k) e4m3 A (row-major)
 // and B^T (8 x k, row-major): `exact` gets the int32 product as the kernel
 // forms it, `chained` the product of a plain f32 accumulation across steps.
 int mma_probe_launch(const uint8_t* a, const uint8_t* bt, int k, int* exact, float* chained,
@@ -229,6 +334,21 @@ int mma_probe_launch(const uint8_t* a, const uint8_t* bt, int k, int* exact, flo
   if (k <= 0 || k % 32) return static_cast<int>(cudaErrorInvalidValue);
   return on_device(device, [&]() {
     mma_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(a, bt, k, exact, chained);
+    return cudaGetLastError();
+  });
+}
+
+// One warpgroup runs the GEMM core's promoted wgmma step and a chained f32
+// accumulation over a (64 x k) e4m3 A and B^T (8 x k), both row-major with
+// k a multiple of 32: `exact` (64 x 8 int32) gets the promoted product,
+// `chained` (f32) the chain's, `first_bad` the first k32 step where the
+// chain left the exact sum, or -1.
+int wgmma_probe_launch(const uint8_t* a, const uint8_t* bt, int k, int* exact, float* chained,
+                       int* first_bad, int device, void* stream) {
+  if (k <= 0 || k % 32) return static_cast<int>(cudaErrorInvalidValue);
+  return on_device(device, [&]() {
+    wgmma_probe_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(a, bt, k, exact,
+                                                                          chained, first_bad);
     return cudaGetLastError();
   });
 }

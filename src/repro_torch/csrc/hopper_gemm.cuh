@@ -1,0 +1,564 @@
+// The GEMM core of both fused Ozaki-II kernels (K1 = fused_raw.cu after its
+// residue prologue, K2 = fused_parts.cu after its B transpose), for Hopper
+// (sm_90a): from K-major residue parts to the f64 product.
+//
+//   A parts: (hi, lo, hs) e4m3 stacks (N, m, k), or one int8 stack;
+//   B parts: the same, K-MAJOR (N, n, k): wgmma takes 8-bit operands only
+//            K-major (its transpose flag exists for 16-bit types only);
+//   per modulus l, the eq. (12) products (A1B2, A2B1, A2B2) of a square
+//   modulus, the eq. (8) products (A1B1, A2B2, (A1+A2)(B1+B2)) of a
+//   Karatsuba modulus, or the single int8 product -> combine -> centred
+//   residue (int16, into a scratch (N, m, n)); after the last modulus,
+//   finalize (fused_common.cuh: Garner digits, Kahan f64 sum, ldexp_wide).
+//   A square modulus never reads an hs part.
+//
+// Schedule. A cluster of two blocks per 128 x 128 output tile, each block
+// a BM x BN = 128 x 64 half; the clusters in groups of GROUP_M row tiles, so
+// that the blocks resident at once share their panels in L2. Warpgroup 2 of
+// each block is the producer: one thread issues the TMA loads of every
+// (modulus, 128-deep k-tile) into a ring of SLOTS shared-memory slots
+// (128-byte swizzle, full/empty mbarriers), one slot per part of A and of B:
+// a k-tile takes 2 consecutive slots for a square modulus, 3 for a Karatsuba
+// one, 1 for int8, so 3 to 9 k-tiles are in flight. The two blocks share
+// their A tile: each loads one 64-row half and multicasts it into both, so
+// L2 carries 3N * mnk * (1/128 + 1/128) bytes, as for a 128 x 128 tile,
+// and a slot is refilled once the consumers of both blocks have released it.
+// Warps 0-7 are two consumer warpgroups, each a 64 x 64 quarter of the
+// cluster's tile: per k32 step one wgmma m64n64k32 per product, both
+// operands from shared memory. The moduli run in the OUTER loop, as the
+// per-modulus accumulators of a block's tile (3 x 128 x 64 f32) already take
+// most of the register file.
+//
+// Exactness by promotion. FP8: each k32 step's product is issued into a
+// FRESH f32 fragment (scale-d = 0) and added on the CUDA cores into a
+// per-product f32 accumulator: the promotion interval is KC = 1 k32 step,
+// so a chain in the tensor core's accumulator sums at most 32 * 16 * 16 =
+// 2^13. Hopper's FP8 wgmma accumulation keeps fewer bits than f32 (the
+// DeepSeek-V3 report, arXiv:2412.19437): fused_raw.cu's wgmma probe found a
+// chained accumulator leaving the exact sum after 16 k32 steps, once a
+// running sum of 2^17 meets small products. The f32 accumulator stays exact
+// while |sum| <= k * 2^8 <= 2^24 (MAX_K = 2^16). int8: the s8 wgmma
+// accumulates in s32 over the whole k (|sum| <= k * 2^14 < 2^31), with no
+// promotion.
+//
+// Registers. A consumer thread holds 3 x 32 accumulators and 3 x 32 fresh
+// fragments. The block starts at 168 registers a thread (384 threads);
+// setmaxnreg moves 128 of each producer thread's to the consumers, which run
+// at 232. (The registers setmaxnreg.inc takes come only from what the
+// block's other warps release, so the producer is a whole warpgroup.) That
+// budget caps a block at 128 x 64: 128 x 128 would need 2 x 3 x 128 x 128
+// live f32 values, more than the SM's 64K registers; and it leaves no room
+// to keep a second step's products in flight while the first is promoted
+// (ptxas serializes such a pipeline), so each warpgroup alternates between
+// its wgmmas and its adds, and the two warpgroups overlap each other.
+//
+// Epilogue. After the last modulus each consumer thread finalizes the 32
+// elements whose residues it wrote, four at a time (fused_common.cuh): the
+// next four's residue words are loaded while these four Garner chains run.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+#include "fused_common.cuh"
+
+namespace hopper {
+
+using fused::KIND_INT8;
+using fused::KIND_KARATSUBA;
+using fused::KIND_SQUARE;
+using fused::kAccs;
+using fused::kParts;
+using fused::MAXN;
+using fused::Moduli;
+
+constexpr int BM = 128, BN = 64, BK = 128;  // one block's tile (KERNEL_TILE: 128 x 2BN x BK)
+constexpr int CLUSTER = 2;  // blocks along n sharing (multicasting) their A tile
+constexpr int KC = 1;                       // k32 steps per fresh FP8 fragment (GEMM_KC)
+constexpr int SLOTS = 9;
+constexpr int CONSUMERS = 2;                    // warpgroups, 64 rows of the tile each
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
+constexpr int GROUP_M = 8;                      // row tiles per raster group
+constexpr int A_TILE = BM * BK, B_TILE = BN * BK;  // bytes of one part's k-tile
+constexpr int SLOT_BYTES = A_TILE + B_TILE;        // one part of A and of B
+constexpr int SMEM_BYTES = 1024 + SLOTS * SLOT_BYTES + 2 * SLOTS * 8 + sizeof(Moduli);
+static_assert(KC == 1, "a chain of KC k32 steps must sum at most 2^13");
+
+// -- PTX wrappers -----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Waits for the phase of `bar` with the given parity to complete. A wait of
+// more than ~2^34 cycles (seconds) can only be a broken pipeline: it traps,
+// so the launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1LL << 34)) {
+      __trap();
+    }
+  }
+}
+
+// Arrive on the barrier at the same shared offset in block `cta` of the
+// cluster (this block included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 r;\n"
+      "mapa.shared::cluster.u32 r, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [r];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// TMA: the box at (c0 = k byte, c1 = row) of a 2-D map into shared memory,
+// completing on `bar`; tma_load_multicast writes it at the same offset into
+// every block of `mask` in the cluster and completes on each one's `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map, int c0,
+                                                   int c1, uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle
+// (TMA's CU_TENSOR_MAP_SWIZZLE_128B): rows of 128 bytes, 8-row groups 1024
+// bytes apart (SBO), the leading offset unused; the tile base 1024-aligned,
+// a k32 step inside the row advances the start address by 32 bytes.
+__device__ __forceinline__ uint64_t desc_k128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+#define HG_D32                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define HG_OUT32(c, d)                                                                    \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]), c(d[8]),        \
+      c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15]), c(d[16]),      \
+      c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]),     \
+      c(d[25]), c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31])
+
+// One e4m3 m64n64k32 product into a fresh f32 fragment d (scale-d = 0).
+__device__ __forceinline__ void wgmma_e4m3_fresh(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.f32.e4m3.e4m3 " HG_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : HG_OUT32("=f", d)
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// One s8 m64n64k32 product added to the s32 accumulator d (scale-d = 1).
+__device__ __forceinline__ void wgmma_s8_acc(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " HG_D32 ", %32, %33, p;\n}\n"
+      : HG_OUT32("+r", d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// -- the kernel ---------------------------------------------------------------
+
+// TMA maps of the K-major part stacks: a[q] over (N*m, k), b[q] over
+// (N*n, k) bytes; int8 uses a[0], b[0] only.
+struct Maps {
+  CUtensorMap a[3];
+  CUtensorMap b[3];
+};
+
+struct Epilogue {
+  int16_t* res;     // (N, m, n) residue scratch
+  const int* lmu;   // (m)
+  const int* lnu;   // (n)
+  double* out;      // (m, n)
+  int m, n, k;
+};
+
+struct Smem {
+  uint32_t tiles;   // shared address of slot 0 (1024-aligned)
+  uint32_t full;    // SLOTS mbarriers: the slot's loads landed
+  uint32_t empty;   // SLOTS mbarriers: the slot's products are done
+};
+
+// A position in the ring: the slot and the parity of its current phase.
+struct Ring {
+  int slot = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance() {
+    if (++slot == SLOTS) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Fragment (j of 32) of a consumer thread -> (row, col) in its 64 x 64 half:
+// the m64nNk32 accumulator layout, warp w of the group owning rows 16w..16w+15.
+__device__ __forceinline__ int frag_row(int j) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  return 16 * w + (lane >> 2) + 8 * ((j >> 1) & 1);
+}
+__device__ __forceinline__ int frag_col(int j) {
+  return 8 * (j >> 2) + 2 * (threadIdx.x & 3) + (j & 1);
+}
+
+// One modulus over the whole contraction, then its centred residues into the
+// scratch plane l.
+template <int KIND>
+__device__ __forceinline__ void consumer_modulus(const Smem& sm, const Epilogue& ep, int l,
+                                                 int p, int s, int row0, int col0,
+                                                 Ring& ring) {
+  constexpr bool INT8 = KIND == KIND_INT8;
+  constexpr int NA = kAccs<KIND>;
+  using Acc = std::conditional_t<INT8, int, float>;
+  const int wg = threadIdx.x >> 7;
+  Acc acc[NA][32];
+#pragma unroll
+  for (int q = 0; q < NA; ++q) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[q][j] = 0;
+  }
+  for (int k0 = 0; k0 < ep.k; k0 += BK) {
+    int slot[kParts<KIND>];
+#pragma unroll
+    for (int q = 0; q < kParts<KIND>; ++q) {  // part q of the k-tile
+      slot[q] = ring.slot;
+      mbar_wait(sm.full + 8 * ring.slot, ring.phase);
+      ring.advance();
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      uint64_t da[kParts<KIND>], db[kParts<KIND>];
+#pragma unroll
+      for (int q = 0; q < kParts<KIND>; ++q) {
+        const uint32_t base = sm.tiles + slot[q] * SLOT_BYTES;
+        da[q] = desc_k128(base + wg * 64 * BK + kk);
+        db[q] = desc_k128(base + A_TILE + kk);
+      }
+      wgmma_fence();
+      if constexpr (INT8) {
+        wgmma_s8_acc(acc[0], da[0], db[0]);
+      } else {
+        float f[3][32];
+        if constexpr (KIND == KIND_SQUARE) {
+          wgmma_e4m3_fresh(f[0], da[0], db[1]);  // A1B2
+          wgmma_e4m3_fresh(f[1], da[1], db[0]);  // A2B1
+          wgmma_e4m3_fresh(f[2], da[1], db[1]);  // A2B2
+        } else {
+#pragma unroll
+          for (int q = 0; q < 3; ++q) wgmma_e4m3_fresh(f[q], da[q], db[q]);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+#pragma unroll
+          for (int j = 0; j < 32; ++j) acc[q][j] = __fadd_rn(acc[q][j], f[q][j]);
+        }
+      }
+    }
+    if constexpr (INT8) {
+      wgmma_commit();
+      wgmma_wait_all();
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {  // both blocks' producers write into this slot
+#pragma unroll
+      for (int q = 0; q < kParts<KIND>; ++q) {
+#pragma unroll
+        for (int c = 0; c < CLUSTER; ++c) mbar_arrive_cluster(sm.empty + 8 * slot[q], c);
+      }
+    }
+  }
+  int16_t* plane = ep.res + static_cast<size_t>(l) * ep.m * ep.n;
+#pragma unroll
+  for (int j = 0; j < 32; j += 2) {
+    int c[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (INT8) {
+        c[h] = ozaki::cmod(acc[0][j + h], p);
+      } else {
+        c[h] = ozaki::combine(__float2int_rn(acc[0][j + h]), __float2int_rn(acc[1][j + h]),
+                              __float2int_rn(acc[2][j + h]), p, KIND == KIND_SQUARE, s);
+      }
+    }
+    const int row = row0 + wg * 64 + frag_row(j), col = col0 + frag_col(j);
+    *reinterpret_cast<uint32_t*>(plane + static_cast<size_t>(row) * ep.n + col) =
+        (static_cast<uint32_t>(c[0]) & 0xFFFFu) | (static_cast<uint32_t>(c[1]) << 16);
+  }
+}
+
+// Index in C of the first of the adjacent pair (j, j + 1) of a consumer
+// thread's fragments, its warpgroup's rows starting at row0.
+__device__ __forceinline__ size_t pair_index(const Epilogue& ep, int row0, int col0, int j) {
+  return static_cast<size_t>(row0 + frag_row(j)) * ep.n + col0 + frag_col(j);
+}
+
+// The 32-bit words holding the residues of the pair at index i (i even) for
+// every radix modulus d < MAXN, radix order; straight-line loads, so they are
+// all in flight at once. Entries d >= N read plane 0 (radix_order is 0 there)
+// and are never used.
+__device__ __forceinline__ void residue_words(const Moduli& M, const int16_t* res, size_t plane,
+                                              size_t i, uint32_t (&w)[MAXN]) {
+#pragma unroll
+  for (int d = 0; d < MAXN; ++d)
+    w[d] = *reinterpret_cast<const uint32_t*>(res + i + M.radix_order[d] * plane);
+}
+
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
+gemm_core_kernel(const __grid_constant__ Maps maps, Epilogue ep,
+                 const __grid_constant__ Moduli mod) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gen = smem_raw + (base - raw);
+  Smem sm{base, base + SLOTS * SLOT_BYTES, base + SLOTS * SLOT_BYTES + 8 * SLOTS};
+  Moduli& M = *reinterpret_cast<Moduli*>(gen + SLOTS * SLOT_BYTES + 16 * SLOTS);
+  fused::copy_moduli(M, mod);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SLOTS; ++s) {
+      mbar_init(sm.full + 8 * s, 1);
+      // one arrival per consumer warp of each block of the cluster
+      mbar_init(sm.empty + 8 * s, 4 * CONSUMERS * CLUSTER);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  cluster_sync();  // every block's barriers exist before any load or remote arrival
+
+  // grouped raster over the clusters' 128 x 128 tiles: GROUP_M row tiles
+  // share their B panels in L2 while resident; the block of rank r takes
+  // columns r * BN of its cluster's tile
+  const uint32_t rank = cluster_rank();
+  const int cid = blockIdx.x / CLUSTER;
+  const int tiles_m = ep.m / BM, tiles_n = ep.n / (CLUSTER * BN);
+  const int group = GROUP_M * tiles_n, first = (cid / group) * GROUP_M;
+  const int rows_in_group = min(tiles_m - first, GROUP_M);
+  const int row0 = (first + (cid % group) % rows_in_group) * BM;
+  const int col0 = (((cid % group) / rows_in_group) * CLUSTER + rank) * BN;
+  const int n_mod = M.n;
+
+  if (threadIdx.x >= 128 * CONSUMERS) {
+    // ---- producer warpgroup: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 128 * CONSUMERS) {
+      Ring ring;
+      for (int l = 0; l < n_mod; ++l) {
+        const int kind = M.kind[l];
+        const int np = kind == KIND_KARATSUBA ? 3 : (kind == KIND_SQUARE ? 2 : 1);
+        for (int k0 = 0; k0 < ep.k; k0 += BK) {
+          for (int q = 0; q < np; ++q) {
+            mbar_wait(sm.empty + 8 * ring.slot, ring.phase ^ 1);
+            const uint32_t full = sm.full + 8 * ring.slot;
+            const uint32_t dst = sm.tiles + ring.slot * SLOT_BYTES;
+            mbar_expect_tx(full, SLOT_BYTES);  // own B, both halves of A
+            const int half = rank * (BM / CLUSTER);
+            tma_load_multicast(dst + half * BK, &maps.a[q], k0, l * ep.m + row0 + half, full,
+                               (1u << CLUSTER) - 1);
+            tma_load(dst + A_TILE, &maps.b[q], k0, l * ep.n + col0, full);
+            ring.advance();
+          }
+        }
+      }
+      // stay resident until every consumer of the cluster has released every
+      // slot: their arrivals land on this block's barriers
+      for (int i = 0; i < SLOTS; ++i) {
+        mbar_wait(sm.empty + 8 * ring.slot, ring.phase ^ 1);
+        ring.advance();
+      }
+    }
+  } else {
+    // ---- consumer warpgroups ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    Ring ring;
+    for (int l = 0; l < n_mod; ++l) {
+      const int p = M.ps[l], s = M.split_s[l];
+      switch (M.kind[l]) {
+        case KIND_SQUARE:
+          consumer_modulus<KIND_SQUARE>(sm, ep, l, p, s, row0, col0, ring);
+          break;
+        case KIND_KARATSUBA:
+          consumer_modulus<KIND_KARATSUBA>(sm, ep, l, p, s, row0, col0, ring);
+          break;
+        default:
+          consumer_modulus<KIND_INT8>(sm, ep, l, p, s, row0, col0, ring);
+      }
+    }
+    // each thread finalizes the elements whose residues it wrote, four at
+    // a time (two pairs of adjacent columns, 8 rows apart): the residue
+    // words of the next two pairs are loaded while these four Garner chains
+    // run, interleaved
+    const size_t plane = static_cast<size_t>(ep.m) * ep.n;
+    const int wg = threadIdx.x >> 7;
+    const int wrow0 = row0 + wg * 64;
+    uint32_t w[2][MAXN], next[2][MAXN] = {};
+    for (int h = 0; h < 2; ++h)
+      residue_words(M, ep.res, plane, pair_index(ep, wrow0, col0, 2 * h), w[h]);
+    for (int j = 0; j < 32; j += 4) {
+      if (j + 4 < 32) {
+        for (int h = 0; h < 2; ++h)
+          residue_words(M, ep.res, plane, pair_index(ep, wrow0, col0, j + 4 + 2 * h), next[h]);
+      }
+      int t[4][MAXN], e[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int d = 0; d < MAXN; ++d) {
+          t[2 * h][d] = static_cast<int16_t>(w[h][d] & 0xFFFFu);
+          t[2 * h + 1][d] = static_cast<int16_t>(w[h][d] >> 16);
+          w[h][d] = next[h][d];
+        }
+        const int row = wrow0 + frag_row(j + 2 * h), col = col0 + frag_col(j + 2 * h);
+        e[2 * h] = -(ep.lmu[row] + ep.lnu[col]);
+        e[2 * h + 1] = -(ep.lmu[row] + ep.lnu[col + 1]);
+      }
+      double v[4];
+      fused::finalize<4>(M, t, e, v);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wrow0 + frag_row(j + 2 * h), col = col0 + frag_col(j + 2 * h);
+        *reinterpret_cast<double2*>(ep.out + static_cast<size_t>(row) * ep.n + col) =
+            make_double2(v[2 * h], v[2 * h + 1]);
+      }
+    }
+  }
+}
+
+// -- host side ----------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no link against libcuda.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The map of one K-major part stack of `rows` rows (N * m or N * n) of k
+// bytes, boxes of box_rows x BK, 128-byte swizzle.
+inline bool make_map(CUtensorMap* map, const uint8_t* base, long long rows, int k, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k)};
+  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<uint8_t*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch the core on `stream`: parts a[q] (N, m, k) and b[q] (N, n, k),
+// K-major, 16-byte aligned (a[1..2], b[1..2] NULL for int8; hs planes of
+// square moduli never read); res an (N, m, n) int16 scratch; m, n, k
+// multiples of (BM, BN, BK). Returns the CUDA error (0 on success).
+inline int gemm_core_launch(const uint8_t* const a[3], const uint8_t* const b[3], const int* lmu,
+                            const int* lnu, int16_t* res, double* out, int m, int n, int k,
+                            const Moduli& mod, int device, cudaStream_t stream) {
+  if (mod.n < 1 || mod.n > MAXN || m <= 0 || n <= 0 || k <= 0 || m % BM || n % (CLUSTER * BN) ||
+      k % BK ||
+      static_cast<long long>(mod.n) * m > 0x7FFFFFFFLL ||
+      static_cast<long long>(mod.n) * n > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int np = mod.kind[0] == KIND_INT8 ? 1 : 3;
+  return fused::on_device(device, [&]() {
+    Maps maps{};
+    for (int q = 0; q < np; ++q) {
+      if (!a[q] || !b[q] ||
+          !make_map(&maps.a[q], a[q], static_cast<long long>(mod.n) * m, k, BM / CLUSTER) ||
+          !make_map(&maps.b[q], b[q], static_cast<long long>(mod.n) * n, k, BN))
+        return cudaErrorInvalidValue;
+    }
+    const long long blocks = static_cast<long long>(m / BM) * (n / BN);
+    if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        gemm_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    const Epilogue ep{res, lmu, lnu, out, m, n, k};
+    gemm_core_kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES, stream>>>(maps, ep,
+                                                                                      mod);
+    return cudaGetLastError();
+  });
+}
+
+}  // namespace hopper

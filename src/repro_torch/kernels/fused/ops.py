@@ -1,8 +1,8 @@
 """Host side of the fused emulated GEMM (the torch counterpart of
 ``repro/kernels/fused/ops.py``): scaling and the raw-frame decomposition in
 plain PyTorch, zero padding to the kernel tile, one ``ozmm_fused_raw``
-launch, crop. Prepared pairings (``ozmm_pallas_fused_prepared``) stream a
-fast-mode plan's cached parts through one ``ozmm_fused_parts`` launch, and
+call (K1), crop. Prepared pairings (``ozmm_pallas_fused_prepared``) stream a
+fast-mode plan's cached parts through one ``ozmm_fused_parts`` call (K2), and
 run an accurate-mode pairing on ``ozmm_fused_raw`` under the exponents of
 its bound GEMM.
 
@@ -105,14 +105,14 @@ def fused_parts_args(sa, lmu, sb, lnu, ms: ModuliSet, blocks) -> tuple:
 
 def _fused_from_frames(a, lmu, b, lnu, *, ms: ModuliSet, blocks) -> torch.Tensor:
     """Raw-frame path: decompose both operands, pad, one ``ozmm_fused_raw``
-    launch, crop."""
+    call, crop."""
     args = fused_raw_args(a, lmu, b, lnu, ms, blocks)
     return ozmm_fused_raw(*args, ms=ms)[:a.shape[0], :b.shape[1]]
 
 
 def _fused_from_parts(sa, lmu, sb, lnu, *, ms: ModuliSet, blocks) -> torch.Tensor:
     """Prepared fast-mode path: the cached part stacks, padded, through one
-    ``ozmm_fused_parts`` launch, crop."""
+    ``ozmm_fused_parts`` call, crop."""
     m, n = lmu.shape[0], lnu.shape[0]
     return ozmm_fused_parts(*fused_parts_args(sa, lmu, sb, lnu, ms, blocks), ms=ms)[:m, :n]
 

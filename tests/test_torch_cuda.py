@@ -1,8 +1,9 @@
-"""The Hopper kernels of repro_torch (K1 ozmm_fused_raw, K2
-ozmm_fused_parts, and the phase-split pipeline's K3 fp8_gemm, K4 int8_gemm,
-K5 requant_garner, K6 quant_residues) against their plain versions on the
-card, bitwise. Every test here is marked ``cuda`` and skips without a CUDA
-device.
+"""The Hopper kernels of repro_torch (K1 ozmm_fused_raw with its residue
+prologue raw_parts, K2 ozmm_fused_parts with its B transpose, the wgmma
+probe of their GEMM core, and the phase-split pipeline's K3 fp8_gemm, K4
+int8_gemm, K5 requant_garner, K6 quant_residues) against their plain
+versions on the card, bitwise. Every test here is marked ``cuda`` and
+skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch; there, skip the JAX-importing conftest::
@@ -54,6 +55,89 @@ def test_mma_probe_step_is_exact():
     f8 = lambda x: torch.tensor(x, dtype=torch.float32, device="cuda").to(torch.float8_e4m3fn)
     exact, _ = fused.mma_probe(f8(a), f8(b))
     assert torch.equal(exact.cpu().long(), torch.tensor(a) @ torch.tensor(b))
+
+
+@pytest.mark.cuda
+def test_wgmma_probe_exact_at_4096():
+    """The GEMM core's promoted wgmma step is exact at k = 4096 on +-16
+    patterns and random parts, and its promotion interval is no longer than
+    the longest chain the probe found exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs the CUDA card")
+    rng = np.random.default_rng(4)
+    k = 4096
+    a = rng.integers(-16, 17, (64, k))
+    b = rng.integers(-16, 17, (k, 8))
+    a[0], b[:, 0] = 16, 16
+    a[1] = b[:, 1] = np.where(np.arange(k) % 2 == 0, 16, -16)
+    f8 = lambda x: torch.tensor(x, dtype=torch.float32, device="cuda").to(torch.float8_e4m3fn)
+    exact, chained, first_bad = fused.wgmma_probe(f8(a), f8(b))
+    assert torch.equal(exact.cpu().long(), torch.tensor(a) @ torch.tensor(b))
+    bad = first_bad.cpu()
+    longest = k // 32 if bool((bad < 0).all()) else int(bad[bad >= 0].min())
+    assert fused.gemm_kc() <= longest
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["ozaki2-fp8/accurate", "ozaki2-karatsuba/fast",
+                                  "ozaki2-int8/fast", "ozaki2-fp8/fast@20"])
+def test_raw_parts_bitwise_vs_plain_on_card(spec):
+    """K1's residue prologue, A (row-major) and B (K-major, transposed in the
+    kernel), against its plain version on every plane it writes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs the CUDA card")
+    rng = np.random.default_rng(14)
+    pol = parse_policy(spec)
+    ms = pol.moduli_set()
+    a = torch.from_numpy(_lognormal(rng, (200, 300), 2.0)).cuda()
+    b = torch.from_numpy(_lognormal(rng, (300, 130), 2.0)).cuda()
+    scal = compute_scaling(a, b, ms, pol.mode)
+    args = fused.fused_raw_args(a, scal.lmu, b, scal.lnu, ms, fused.KERNEL_TILE)
+    launches = fused.raw_parts.launches
+    for axis, (mh, ml, e, lexp) in enumerate((args[:4], args[4:8])):
+        got = fused.raw_parts(mh, ml, e, lexp, args[8], ms=ms, axis=axis)
+        want = fused.raw_parts_plain(mh, ml, e, lexp, args[8], ms=ms, axis=axis)
+        for g, w in zip(fused.part_planes(got, ms), fused.part_planes(want, ms)):
+            assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+    assert fused.raw_parts.launches == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 128, 64), (1000, 997, 1003), (128, 128, 1)],
+                         ids=["128x128x64", "ragged", "hpl-fold"])
+@pytest.mark.parametrize("spec", ["ozaki2-fp8/fast", "ozaki2-karatsuba/fast", "ozaki2-int8/fast"])
+def test_fused_kernels_at_tile_ragged_and_fold_shapes(spec, shape):
+    """K1 (prologue + core) and K2 (transpose + core) against their plain
+    versions at 128x128x64 (m x k x n), a ragged shape and HPL's TRSM fold
+    shape (a 128 x 128 block onto one column); each call launches the
+    prologue twice or the transpose once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs the CUDA card")
+    from repro_torch import prepare_operand
+    from repro_torch.kernels import stack_parts
+
+    m, k, n = shape
+    rng = np.random.default_rng(15)
+    pol = parse_policy(spec)
+    ms = pol.moduli_set()
+    a = torch.from_numpy(_lognormal(rng, (m, k), 1.0)).cuda()
+    b = torch.from_numpy(_lognormal(rng, (k, n), 1.0)).cuda()
+    scal = compute_scaling(a, b, ms, pol.mode)
+    args = fused.fused_raw_args(a, scal.lmu, b, scal.lnu, ms, fused.KERNEL_TILE)
+    counts = fused.ozmm_fused_raw.launches, fused.raw_parts.launches
+    got = fused.ozmm_fused_raw(*args, ms=ms)
+    assert (fused.ozmm_fused_raw.launches, fused.raw_parts.launches) == (counts[0] + 1,
+                                                                         counts[1] + 2)
+    assert torch.equal(got, fused.ozmm_fused_raw_ref(*args, ms=ms))
+    qa, qb = prepare_operand(a, "lhs", spec), prepare_operand(b, "rhs", spec)
+    pargs = fused.fused_parts_args(stack_parts(qa.parts, ms), qa.lscale,
+                                   stack_parts(qb.parts, ms), qb.lscale, ms, fused.KERNEL_TILE)
+    counts = fused.ozmm_fused_parts.launches, fused.transpose_parts.launches
+    got = fused.ozmm_fused_parts(*pargs, ms=ms)
+    assert (fused.ozmm_fused_parts.launches, fused.transpose_parts.launches) == (counts[0] + 1,
+                                                                                 counts[1] + 1)
+    assert torch.equal(got, fused.ozmm_fused_parts_ref(*pargs, ms=ms))
+    assert torch.equal(got[:m, :n], ozmm(qa, qb, spec + "+core"))
 
 
 @pytest.mark.cuda
