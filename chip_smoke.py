@@ -9,7 +9,7 @@ script exits non-zero without printing a result:
 
 1. card: name and power limit; build of the CUDA kernels from csrc/ (one
    nvcc per source, all started together), with ptxas's registers, shared
-   memory and spills of each kernel.
+   memory, spills and wgmma serialization notes (C75xx) of each kernel.
 2. MMA probes: K3/K4's mma.sync k32 FP8 step, and the K1/K2 GEMM core's
    wgmma step (each k32 product into a fresh f32 fragment, promoted into an
    f32 sum), on +-16 and mixed e4m3 patterns at k up to 65536 against an
@@ -57,19 +57,27 @@ script exits non-zero without printing a result:
    way.
 8. the phase-split '+pallas+unfused' pipeline: K6 (quant_residues), K3
    (fp8_gemm), K4 (int8_gemm) and K5 (requant_garner) each bitwise against
-   its plain version at 1024^3, 1000x997x1003 and the main-path size (e4m3
-   as bytes), K3 also against torch._scaled_mm and K4 against torch._int_mm
-   (oracles the port never calls) where their shape rules allow; then the
-   path itself: ozmm(a, b, spec + "+pallas+unfused") at the main-path size
-   for the four policies, each launch count moving by the predicted amount
-   (K6 2, K3 3N or K4 N, K5 1 a call), bitwise equal to '+core' and to the
-   fused '+pallas' (K1), normwise error vs cuBLAS DGEMM <= 2^-44; prepared
-   pairings (fast, accurate) on '+pallas+unfused' against '+core'; lu_factor
-   + lu_solve at n = 1024 on '+pallas+unfused' against '+core'; timings
-   (median of 5 after a warm-up) of each kernel, its plain version, its
-   library call and its bound, and one ozmm call split into scaling,
-   scaled_int + decompose_int, K6, the K3/K4 total, K5 and the torch
-   epilogue.
+   its plain version at 1024^3, 1000x1024x1003, 1000x997x1003 and the
+   main-path size (e4m3 as bytes), on the pipeline's operands (B's parts
+   K-major, from K6 on B^T, itself checked against K6 on B transposed): K3
+   and K4 on the route the shape gives (wgmma where k % 16 == 0, else
+   mma_sync) and, where that is wgmma, modulus 0's products again through
+   the mma_sync route (A 1 byte off alignment); K3 also against
+   torch._scaled_mm and K4 against torch._int_mm (oracles the port never
+   calls) where their shape rules allow; K3 exact at k = 65536 on both
+   routes for +-16 and "+16 then +1" parts; then the path itself: ozmm(a,
+   b, spec + "+pallas+unfused") at the main-path size for the four
+   policies, each launch count (K6 2, K3 3N or K4 N, K5 1 a call) and
+   route count moving by the predicted amount and no B copied by a GEMM
+   wrapper, bitwise equal to '+core' and to the fused '+pallas' (K1),
+   normwise error vs cuBLAS DGEMM <= 2^-44; prepared pairings (fast,
+   accurate) on '+pallas+unfused' against '+core'; lu_factor + lu_solve at
+   n = 1024 on '+pallas+unfused' against '+core'; timings (median of 5
+   after a warm-up) of each kernel on the pipeline's own operands (B
+   K-major, so no transpose is timed), its plain version, its library call
+   and its bound, K3/K4 also on the mma_sync route, and one ozmm call split
+   into scaling, B's f64 transpose, scaled_int + decompose_int, K6, the
+   K3/K4 total, K5 and the torch epilogue.
 
 The last two lines are the card (nvidia-smi name, power limit) and
 {"ok": true, "device": {...}}; before them a {"kernels": [...]} line.
@@ -329,6 +337,16 @@ def max_abs_err(x, y) -> float:
     return (f64(x) - f64(y)).abs().max().item()
 
 
+def misaligned(x):
+    """A copy of x whose data starts 1 byte past a 16-byte boundary: TMA cannot
+    address it, so a residue GEMM on it takes the mma_sync route."""
+    import torch
+
+    buf = torch.empty(x.numel() + 16, dtype=torch.uint8, device=x.device)
+    y = buf[1:1 + x.numel()].view(x.dtype).view(x.shape)
+    return y.copy_(x)
+
+
 def unfused_phase(args, dev, gen) -> list[dict]:
     """Phase 8 (module docstring): the phase-split pipeline's kernels K3-K6
     against their plain versions and oracles, the '+pallas+unfused' path,
@@ -341,15 +359,23 @@ def unfused_phase(args, dev, gen) -> list[dict]:
     from repro_torch.core import crt, quantize, scaling
     from repro_torch.core.plan import pow2_tables
     from repro_torch.kernels import pipeline
+    from repro_torch.kernels.fp8_gemm import ROUTES, reset_counts, residue_gemm_route
     from repro_torch.kernels.quant_residues import ops as qr_ops
     from repro_torch.precision import parse_policy
 
     big = args.size
     kernels = (kn.quant_residues, kn.fp8_gemm, kn.int8_gemm, kn.requant_garner)
+    gemms = (kn.fp8_gemm, kn.int8_gemm)
     one = torch.ones((), dtype=torch.float32, device=dev)
 
     def counts():
         return tuple(f.launches for f in kernels)
+
+    def routes():
+        """(K3 wgmma, K3 mma_sync, K4 wgmma, K4 mma_sync) launches and the
+        B copies of both wrappers."""
+        return (*(g.launches_by_route[r] for g in gemms for r in ROUTES),
+                sum(g.b_copies for g in gemms))
 
     def stacks(x):
         return list(x) if isinstance(x, tuple) else [x]
@@ -357,48 +383,82 @@ def unfused_phase(args, dev, gen) -> list[dict]:
     def frames(x, lscale, axis):
         return kn.decompose_int(quantize.scaled_int(x, lscale, axis))
 
-    def first_pair(sa, sb, ms, l):
-        """The operands of modulus l's first product in the schedule."""
+    def first_pair(sa, sbt, ms, l):
+        """The operands of modulus l's first product in the schedule: A's
+        plane and B's, K-major (the transpose of B^T's plane)."""
         if ms.family == "int8":
-            return sa[l], sb[l]
-        return (sa[0][l], sb[1][l]) if ms.is_square[l] else (sa[0][l], sb[0][l])
+            return sa[l], sbt[l].t()
+        return (sa[0][l], sbt[1][l].t()) if ms.is_square[l] else (sa[0][l], sbt[0][l].t())
 
-    # -- each kernel against its plain version (and oracles), three shapes --
+    def pairs_of(sa, sbt, ms, l):
+        """Modulus l's products in the schedule (pipeline.residue_gemms)."""
+        if ms.family == "int8":
+            return [(sa[l], sbt[l].t())]
+        qs = ((0, 1), (1, 0), (1, 1)) if ms.is_square[l] else ((0, 0), (1, 1), (2, 2))
+        return [(sa[i][l], sbt[j][l].t()) for i, j in qs]
+
+    # -- each kernel against its plain version (and oracles), four shapes --
     specs = ("ozaki2-fp8/fast", "ozaki2-karatsuba/fast", "ozaki2-int8/fast")
-    for m, k, n in ((1024, 1024, 1024), (1000, 997, 1003), (big, big, big)):
+    for m, k, n in ((1024, 1024, 1024), (1000, 1024, 1003), (1000, 997, 1003), (big, big, big)):
         a, b = lognormal(gen, (m, k), 0.5, dev), lognormal(gen, (k, n), 0.5, dev)
         for spec in specs:
             ms = parse_policy(spec).moduli_set()
             scal = scaling.compute_scaling(a, b, ms, "fast")
             tables = pow2_tables(ms, dev)
             sides = []
-            for x, lscale, axis in ((a, scal.lmu, 0), (b, scal.lnu, 1)):
-                fr = frames(x, lscale, axis)
+            for what, x, lscale in (("A", a, scal.lmu), ("B^T", pipeline.k_major(b), scal.lnu)):
+                fr = frames(x, lscale, 0)
                 got = kn.quant_residues(*fr, tables, ms=ms)
                 plain = kn.quant_residues_plain(*fr, tables, ms=ms)
                 torch.cuda.synchronize()
                 for i, (g, w) in enumerate(zip(stacks(got), stacks(plain))):
                     check_equal(as_bytes(g), as_bytes(w),
-                                f"K6 {spec} {m}x{k}x{n} axis {axis} stack {i} vs plain version")
+                                f"K6 {spec} {m}x{k}x{n} {what} stack {i} vs plain version")
                 sides.append(got)
                 del fr, plain
-            sa, sb = sides
-            cparts = pipeline.residue_gemms(sa, sb, ms)
-            plain_gemm = kn.int8_gemm_plain if ms.family == "int8" else kn.fp8_gemm_plain
+            sa, sbt = sides
+            # B's parts from B^T are B's parts (per-column exponents) transposed
+            by_col = kn.quant_residues(*frames(b, scal.lnu, 1), tables, ms=ms)
+            for i, (g, w) in enumerate(zip(stacks(sbt), stacks(by_col))):
+                check_equal(as_bytes(g), as_bytes(w.transpose(1, 2).contiguous()),
+                            f"K6 {spec} {m}x{k}x{n}: B^T's stack {i} vs B's transposed")
+            del by_col
+            gemm = "K4" if ms.family == "int8" else "K3"
+            route = residue_gemm_route(k, 0, 0)
+            before = routes()
+            cparts = pipeline.residue_gemms(sa, sbt, ms)
+            moved = tuple(x - y for x, y in zip(routes(), before))
+            per_call = ms.n if ms.family == "int8" else 3 * ms.n
+            col = (2 if ms.family == "int8" else 0) + ROUTES.index(route)
+            check(moved[col] == per_call and sum(moved[:4]) == per_call and moved[4] == 0,
+                  f"{gemm} {spec} {m}x{k}x{n}: (K3 wgmma, K3 mma_sync, K4 wgmma, K4 mma_sync, "
+                  f"B copies) moved {moved}, predicted {per_call} on {route} and no copy")
             with Swapped(pipeline, "int8_gemm", kn.int8_gemm_plain), \
                     Swapped(pipeline, "fp8_gemm", kn.fp8_gemm_plain):
-                cplain = pipeline.residue_gemms(sa, sb, ms)
-            gemm = "K4" if ms.family == "int8" else "K3"
+                cplain = pipeline.residue_gemms(sa, sbt, ms)
             for i, (g, w) in enumerate(zip(cparts, cplain)):
                 check_equal(g, w, f"{gemm} {spec} {m}x{k}x{n}: products c{i + 1} vs plain version")
             del cplain
-            x, y = first_pair(sa, sb, ms, 0)
+            kern = kn.int8_gemm if ms.family == "int8" else kn.fp8_gemm
+            routes_done = route
+            if route == "wgmma":  # modulus 0's products again, on the mma_sync route
+                for i, (x, y) in enumerate(pairs_of(sa, sbt, ms, 0)):
+                    xm = misaligned(x)
+                    check(residue_gemm_route(k, xm.data_ptr(), y.t().data_ptr()) == "mma_sync",
+                          "a misaligned A did not select the mma_sync route")
+                    check_equal(kern(xm, y), cparts[i][0],
+                                f"{gemm} {spec} {m}x{k}x{n}: modulus 0 product {i} on the "
+                                "mma_sync route vs the wgmma route (== plain version)")
+                    del xm
+                routes_done = "wgmma + mma_sync"
+            x, y = first_pair(sa, sbt, ms, 0)
             if ms.family == "int8" and m > 16 and k % 8 == 0 and n % 8 == 0:
-                check_equal(cparts[0][0], torch._int_mm(x, y), f"K4 {m}x{k}x{n} vs torch._int_mm")
+                check_equal(cparts[0][0], torch._int_mm(x, y.contiguous()),
+                            f"K4 {m}x{k}x{n} vs torch._int_mm")
                 oracle = "torch._int_mm"
             elif ms.family != "int8" and m % 16 == 0 and k % 16 == 0 and n % 16 == 0:
-                lib = torch._scaled_mm(x, y.t().contiguous().t(), scale_a=one, scale_b=one,
-                                       out_dtype=torch.float32, use_fast_accum=False)
+                lib = torch._scaled_mm(x, y, scale_a=one, scale_b=one, out_dtype=torch.float32,
+                                       use_fast_accum=False)
                 check_equal(cparts[0][0], lib, f"K3 {spec} {m}x{k}x{n} vs torch._scaled_mm")
                 oracle = "torch._scaled_mm"
             else:
@@ -407,28 +467,49 @@ def unfused_phase(args, dev, gen) -> list[dict]:
             check_equal(digits, kn.requant_garner_plain(cparts, ms=ms),
                         f"K5 {spec} {m}x{k}x{n} vs plain version")
             torch.cuda.synchronize()
-            print(f"  {spec:24s} {m}x{k}x{n}: K6 (both operands), {gemm} ({len(cparts)} x "
-                  f"{ms.n} planes), K5 == plain versions (bitwise); {gemm} plane 0 == "
-                  f"{oracle}", flush=True)
-            del sa, sb, sides, cparts, digits, x, y
+            print(f"  {spec:24s} {m}x{k}x{n}: K6 (A and B^T; B^T's == B's transposed), {gemm} "
+                  f"({len(cparts)} x {ms.n} planes, {routes_done}), K5 == plain versions "
+                  f"(bitwise); {gemm} plane 0 == {oracle}", flush=True)
+            del sa, sbt, sides, cparts, digits, x, y
             torch.cuda.empty_cache()
         del a, b
         torch.cuda.empty_cache()
 
+    # -- K3's exactness at k = 65536, both routes --------------------------
+    a8, b8, want = probe_operands(65536, dev)
+    bt8 = b8.t().contiguous()
+    for route, x in (("wgmma", a8), ("mma_sync", misaligned(a8))):
+        before = kn.fp8_gemm.launches_by_route[route]
+        got = kn.fp8_gemm(x, bt8.t())
+        check(kn.fp8_gemm.launches_by_route[route] == before + 1,
+              f"K3 at k = 65536 did not take the {route} route")
+        check(torch.equal(got.cpu().long(), want),
+              f"K3 at k = 65536 on the {route} route: not the exact int64 product")
+    print(f"  K3 k = 65536 (+-16, +16 then +1, max |sum| {int(want.abs().max())}): exact on both "
+          "routes", flush=True)
+    del a8, b8, bt8
+
     # -- the main path: ozmm(..., "+pallas+unfused") for the four policies --
     a, b = lognormal(gen, (big, big), 0.5, dev), lognormal(gen, (big, big), 0.5, dev)
-    for f in kernels:
-        f.launches = 0
+    kn.quant_residues.launches = kn.requant_garner.launches = 0
+    for g in gemms:
+        reset_counts(g)
     out = {spec: ozmm(a, b, spec + UNFUSED) for spec in POLICIES}
     torch.cuda.synchronize()
-    main_launches = counts()
+    main_launches, main_routes = counts(), routes()
     mss = [parse_policy(spec).moduli_set() for spec in POLICIES]
     want = (2 * len(POLICIES), sum(3 * ms.n for ms in mss if ms.family != "int8"),
             sum(ms.n for ms in mss if ms.family == "int8"), len(POLICIES))
+    route = residue_gemm_route(big, 0, 0)
+    want_routes = tuple(want[1 + i // 2] if ROUTES[i % 2] == route else 0
+                        for i in range(4)) + (0,)
     print(f"  main path: (K6, K3, K4, K5) launches {main_launches} for {len(POLICIES)} ozmm "
-          f"calls, predicted {want}", flush=True)
+          f"calls, predicted {want}; (K3 wgmma, K3 mma_sync, K4 wgmma, K4 mma_sync, B copies) "
+          f"{main_routes}, predicted {want_routes}", flush=True)
     check(main_launches == want, f"unfused main path: (K6, K3, K4, K5) launches "
                                  f"{main_launches}, predicted {want}")
+    check(main_routes == want_routes, f"unfused main path: routes and B copies {main_routes}, "
+                                      f"predicted {want_routes}")
     dgemm = torch.matmul(a, b)
     for spec, c in out.items():
         check(c.shape == (big, big) and bool(torch.isfinite(c).all()),
@@ -446,12 +527,13 @@ def unfused_phase(args, dev, gen) -> list[dict]:
     for spec in ("ozaki2-fp8/fast", "ozaki2-fp8/accurate"):
         ms = parse_policy(spec).moduli_set()
         qa, qb = prepare_operand(a, "lhs", spec), prepare_operand(b, "rhs", spec)
-        before = counts()
+        before, copies = counts(), routes()[4]
         got = ozmm(qa, qb, spec + UNFUSED)
         moved = tuple(x - y for x, y in zip(counts(), before))
         predicted = (0 if spec.endswith("fast") else 2, 3 * ms.n, 0, 1)
         check(moved == predicted, f"{spec} prepared {UNFUSED}: launches {moved}, "
                                   f"predicted {predicted}")
+        check(routes()[4] == copies, f"{spec} prepared {UNFUSED}: a GEMM wrapper copied B")
         check_equal(got, ozmm(qa, qb, spec + "+core"), f"{spec} prepared {big}^3: "
                                                        f"{UNFUSED} vs +core")
         print(f"  {spec:24s} prepared {big}^3: {UNFUSED} == +core (bitwise), launches "
@@ -463,10 +545,12 @@ def unfused_phase(args, dev, gen) -> list[dict]:
     pairings = (nb1 - 1) + nb1 * (nb1 - 1)  # trailing updates + the solve's folds
     for spec in ("ozaki2-fp8/fast", "ozaki2-fp8/accurate"):
         ms = parse_policy(spec).moduli_set()
-        before = counts()
+        before, before_routes = counts(), routes()
         lu_k, perm_k = linalg.lu_factor(a1, spec + UNFUSED, block=HPL_BLOCK)
         x_k = linalg.lu_solve(lu_k, perm_k, b1, spec + UNFUSED, block=HPL_BLOCK)
         moved = tuple(x - y for x, y in zip(counts(), before))
+        moved_routes = tuple(x - y for x, y in zip(routes(), before_routes))
+        check(moved_routes[4] == 0, f"LU n=1024 {spec}{UNFUSED}: a GEMM wrapper copied B")
         quant = 0 if spec.endswith("fast") else 2 * pairings
         predicted = (quant, 3 * ms.n * pairings, 0, pairings)
         check(moved == predicted, f"LU n=1024 {spec}{UNFUSED}: launches {moved}, "
@@ -476,8 +560,9 @@ def unfused_phase(args, dev, gen) -> list[dict]:
         check(np.array_equal(perm_k, perm_c) and np.array_equal(lu_k, lu_c),
               f"LU n=1024 {spec}: {UNFUSED} and +core factorizations differ")
         check(np.array_equal(x_k, x_c), f"LU n=1024 {spec}: {UNFUSED} and +core solves differ")
-        print(f"  LU n=1024 {spec}: {UNFUSED} ((K6, K3, K4, K5) launches {moved}) == +core, "
-              "factorization and solve (bitwise)", flush=True)
+        print(f"  LU n=1024 {spec}: {UNFUSED} ((K6, K3, K4, K5) launches {moved}; K3 "
+              f"(wgmma, mma_sync) {moved_routes[:2]}, no B copied) == +core, factorization and "
+              "solve (bitwise)", flush=True)
 
     # -- timings at the main-path size --------------------------------------
     rows, detail = [], []
@@ -489,18 +574,19 @@ def unfused_phase(args, dev, gen) -> list[dict]:
         tables = pow2_tables(ms, dev)
         fr = frames(a, scal.lmu, 0)
         sa = kn.quant_residues(*fr, tables, ms=ms)
-        sb = qr_ops.quant_residues_op(b, scal.lnu, ms=ms, axis=1)
-        x, y = first_pair(sa, sb, ms, 0)
+        sbt = qr_ops.quant_residues_op(pipeline.k_major(b), scal.lnu, ms=ms, axis=0)
+        x, y = first_pair(sa, sbt, ms, 0)  # y: B's plane, K-major as the pipeline hands it
+        xm = misaligned(x)
         plane = torch.empty((big, big), dtype=torch.int32 if int8 else torch.float32, device=dev)
-        cparts = pipeline.residue_gemms(sa, sb, ms)
+        cparts = pipeline.residue_gemms(sa, sbt, ms)
         n_out = ms.n if int8 else 3 * ms.n  # K6's part stacks = K5's product planes
         gemm_kern = kn.int8_gemm if int8 else kn.fp8_gemm
         gemm_plain = kn.int8_gemm_plain if int8 else kn.fp8_gemm_plain
         if int8:
-            gemm_lib = lambda: torch._int_mm(x, y)  # noqa: E731
+            yc = y.contiguous()
+            gemm_lib = lambda: torch._int_mm(x, yc)  # noqa: E731
         else:
-            yc = y.t().contiguous().t()
-            gemm_lib = lambda: torch._scaled_mm(x, yc, scale_a=one, scale_b=one,  # noqa: E731
+            gemm_lib = lambda: torch._scaled_mm(x, y, scale_a=one, scale_b=one,  # noqa: E731
                                                 out_dtype=torch.float32, use_fast_accum=False)
         cases = [
             ("quant_residues", "K6", "src/repro_torch/csrc/quant_residues.cu",
@@ -537,12 +623,16 @@ def unfused_phase(args, dev, gen) -> list[dict]:
                    "launches": launches, "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes > t_ops else "operations", "library_ms": ms_l}
+            if tag in ("K3", "K4"):  # the same product on the mma_sync route
+                row["mma_sync_ms"] = cuda_ms(lambda: gemm_kern(xm, y, out=plane))
             detail.append(row)
             lib_txt = f"{ms_l:.3f} ms" if ms_l is not None else "none"
+            if "mma_sync_ms" in row:
+                lib_txt += f", mma_sync route {row['mma_sync_ms']:.3f} ms"
             print(f"  {tag} {name:15s} {spec:18s} kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, "
                   f"library {lib_txt}, bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
                   f"launches {launches}, max|kernel-plain| {err}", flush=True)
-        del fr, sa, sb, x, y, plane, cparts
+        del fr, sa, sbt, x, xm, y, plane, cparts
         torch.cuda.empty_cache()
     check(all(r["max_abs_err"] == 0.0 for r in detail), "a K3-K6 kernel and its plain version "
                                                           "differ")
@@ -554,6 +644,7 @@ def unfused_phase(args, dev, gen) -> list[dict]:
     for spec in ("ozaki2-fp8/accurate", "ozaki2-int8/fast"):
         total = cuda_ms(lambda: ozmm(a, b, spec + UNFUSED), 3)
         with CallTotals(scaling, "compute_scaling") as t_scal, \
+                CallTotals(pipeline, "k_major") as t_bt, \
                 CallTotals(quantize, "scaled_int") as t_int, \
                 CallTotals(qr_ops, "decompose_int") as t_dec, \
                 CallTotals(qr_ops, "quant_residues") as t_k6, \
@@ -563,8 +654,9 @@ def unfused_phase(args, dev, gen) -> list[dict]:
                 CallTotals(crt, "reconstruct") as t_epi:
             ozmm(a, b, spec + UNFUSED)
             torch.cuda.synchronize()
-        layers = {"scaling": t_scal, "scaled_int": t_int, "decompose_int": t_dec,
-                  "K6": t_k6, "K3": t_k3, "K4": t_k4, "K5": t_k5, "epilogue": t_epi}
+        layers = {"scaling": t_scal, "bt_copy": t_bt, "scaled_int": t_int,
+                  "decompose_int": t_dec, "K6": t_k6, "K3": t_k3, "K4": t_k4, "K5": t_k5,
+                  "epilogue": t_epi}
         entry = {"policy": spec + UNFUSED, "shape": [big, big, big], "ozmm_ms": total,
                  **{f"{k}_ms": v.seconds() * 1e3 for k, v in layers.items()}}
         split.append(entry)
@@ -627,9 +719,11 @@ def main() -> int:
         log = build.library_path(source).with_suffix(".log")
         entry = "?"
         for line in log.read_text().splitlines() if log.exists() else ():
-            found = re.search(r"Compiling entry function '\w*?(\d+)([a-z_]+kernel)", line)
+            found = re.search(r"Compiling entry function '\w*?(\d+)([a-z_]+kernel)(ILb([01])E)?",
+                              line)
             if found:
-                entry = found.group(2)
+                entry = found.group(2) + ("" if found.group(4) is None else
+                                          f"<{'true' if found.group(4) == '1' else 'false'}>")
             elif any(w in line for w in ("registers", "spill", "smem", "(C75")):
                 print(f"  ptxas {source} {entry}: {line.strip()}")
     t0 = phase("1 card+build", t0)

@@ -1,6 +1,6 @@
 // Device code shared by the CUDA kernels of repro_torch: the moduli
-// parameter block (every kernel), the mma.sync FP8/int8 step, its fragment
-// loads and the B transpose in registers (K3/K4, residue_gemm.cu, and the
+// parameter block (every kernel), the mma.sync FP8/int8 step and its
+// fragment loads (the mma_sync route of K3/K4, residue_gemm.cu, and the
 // mma.sync probe of fused_raw.cu), and the f64 epilogue of the fused kernels
 // (finalize: Garner digits, Kahan sum, ldexp_wide), which the Hopper GEMM
 // core of K1/K2 (hopper_gemm.cuh) runs on each element of its tile.
@@ -14,7 +14,7 @@
 
 namespace fused {
 
-constexpr int BK = 64;        // k-tile of the mma.sync kernels (K3/K4)
+constexpr int BK = 64;        // k-tile of the mma.sync kernel (K3/K4's mma_sync route)
 constexpr int THREADS = 256;  // block size of the kernels other than the GEMM core
 constexpr int LDS = BK + 16;  // part row stride (bytes): conflict-free fragment loads
 constexpr int MAXN = 20;      // MAX_MODULI in kernels/launch.py
@@ -110,21 +110,6 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[2], const uint8_t* base, in
   const uint8_t* p = base + (lane >> 2) * LDS + (lane & 3) * 4;
   b[0] = *reinterpret_cast<const uint32_t*>(p);
   b[1] = *reinterpret_cast<const uint32_t*>(p + 16);
-}
-
-// Four k rows of four B columns (w[i]: row i's 4 column bytes) stored
-// k-contiguous per column for the .col operand of mma.sync: column col + j
-// of dst ([cols][LDS]) gets the k bytes kbyte..kbyte+3. This 4 x 4 byte
-// transpose in registers lets B arrive in its row-major (k, n) layout.
-__device__ __forceinline__ void store_b_transposed(uint8_t* dst, const uint32_t (&w)[4],
-                                                   int col, int kbyte) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t v = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v |= ((w[i] >> (8 * j)) & 0xFFu) << (8 * i);
-    *reinterpret_cast<uint32_t*>(dst + (col + j) * LDS + kbyte) = v;
-  }
 }
 
 // ozaki::cmod(x, p) for |x| < 2^22 and p < 2^11 (the Garner steps: |x| <=

@@ -17,7 +17,9 @@
 // 1. transpose_parts_kernel: B's (N, k, n) stacks, N-major as the plans keep
 //    them, to K-major (N, n, k), once per call: wgmma takes 8-bit operands
 //    only K-major. 64 x 64-byte tiles through shared memory, 16-byte loads
-//    and stores; square moduli's hs planes are neither read nor written.
+//    and stores (byte by byte at ragged edges, which the phase-split
+//    pipeline's unpadded plans have); square moduli's hs planes are neither
+//    read nor written.
 //    A's (N, m, k) stacks are K-major already and are read in place.
 // 2. The GEMM core of hopper_gemm.cuh (shared with K1): a TMA ring of
 //    128-byte-swizzled k-tiles, wgmma m64n64k32 from shared memory with the
@@ -48,7 +50,9 @@ constexpr int TLD = TT + 16;  // shared row stride: 16-byte aligned rows
 
 // One 64 x 64-byte tile of one plane: src (k, n) bytes, dst (n, k) bytes.
 // Each thread loads 16 bytes of a k row, then gathers 16 k bytes of one
-// column from shared memory and stores them as one 16-byte word.
+// column from shared memory and stores them as one 16-byte word. A tile at
+// a ragged edge, or of a plane whose k or n is no multiple of 16 (the
+// phase-split pipeline's unpadded plans), is copied byte by byte, masked.
 __global__ void __launch_bounds__(THREADS)
 transpose_parts_kernel(const uint8_t* __restrict__ s0, const uint8_t* __restrict__ s1,
                        const uint8_t* __restrict__ s2, uint8_t* __restrict__ d0,
@@ -61,6 +65,20 @@ transpose_parts_kernel(const uint8_t* __restrict__ s0, const uint8_t* __restrict
   const uint8_t* src = (q == 0 ? s0 : q == 1 ? s1 : s2) + static_cast<size_t>(l) * k * n;
   uint8_t* dst = (q == 0 ? d0 : q == 1 ? d1 : d2) + static_cast<size_t>(l) * k * n;
   const int k0 = blockIdx.y * TT, c0 = blockIdx.x * TT;
+  if (k0 + TT > k || c0 + TT > n || k % 16 || n % 16) {
+    for (int i = threadIdx.x; i < TT * TT; i += THREADS) {
+      const int kr = i / TT, col = i % TT;
+      if (k0 + kr < k && c0 + col < n)
+        tile[kr * TLD + col] = src[static_cast<size_t>(k0 + kr) * n + c0 + col];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < TT * TT; i += THREADS) {
+      const int col = i / TT, kr = i % TT;
+      if (c0 + col < n && k0 + kr < k)
+        dst[static_cast<size_t>(c0 + col) * k + k0 + kr] = tile[kr * TLD + col];
+    }
+    return;
+  }
   const int r = threadIdx.x >> 2, c = (threadIdx.x & 3) * 16;
   *reinterpret_cast<uint4*>(tile + r * TLD + c) =
       *reinterpret_cast<const uint4*>(src + static_cast<size_t>(k0 + r) * n + c0 + c);
@@ -79,25 +97,25 @@ extern "C" {
 
 // Launch the B transpose on `stream`: the (N, k, n) part stacks s_hi, s_lo,
 // s_hs (int8: s_hi only, the others NULL) into (N, n, k) stacks d_*; square
-// moduli's hs planes untouched; k and n multiples of 64, all pointers
-// 16-byte aligned. `kind` is the host array of the moduli kinds. Returns the
-// CUDA error (0 on success).
+// moduli's hs planes untouched; any k and n, all pointers 16-byte aligned.
+// `kind` is the host array of the moduli kinds. Returns the CUDA error (0 on
+// success).
 int transpose_parts_launch(const uint8_t* s_hi, const uint8_t* s_lo, const uint8_t* s_hs,
                            uint8_t* d_hi, uint8_t* d_lo, uint8_t* d_hs, int k, int n,
                            int num_moduli, int device, const int* ps, const int* split_s,
                            const int* kind, const int* radix_order, const int* radix_ps,
                            const int* inv, const double* weights, void* stream) {
-  if (num_moduli < 1 || num_moduli > MAXN || k <= 0 || n <= 0 || k % TT || n % TT ||
-      k / TT > 65535 || !s_hi || !d_hi)
+  if (num_moduli < 1 || num_moduli > MAXN || k <= 0 || n <= 0 || (k + TT - 1) / TT > 65535 ||
+      !s_hi || !d_hi)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool int8 = kind[0] == KIND_INT8;
   if (!int8 && !(s_lo && s_hs && d_lo && d_hs)) return static_cast<int>(cudaErrorInvalidValue);
   const Moduli mod =
       make_moduli(num_moduli, ps, split_s, kind, radix_order, radix_ps, inv, weights);
   return on_device(device, [&]() {
-    transpose_parts_kernel<<<dim3(n / TT, k / TT, 3 * num_moduli), THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(s_hi, s_lo, s_hs, d_hi, d_lo,
-                                                                  d_hs, k, n, mod);
+    const dim3 grid((n + TT - 1) / TT, (k + TT - 1) / TT, 3 * num_moduli);
+    transpose_parts_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        s_hi, s_lo, s_hs, d_hi, d_lo, d_hs, k, n, mod);
     return cudaGetLastError();
   });
 }

@@ -64,6 +64,7 @@
 #include <type_traits>
 
 #include "fused_common.cuh"
+#include "hopper_ptx.cuh"
 
 namespace hopper {
 
@@ -86,137 +87,7 @@ constexpr int A_TILE = BM * BK, B_TILE = BN * BK;  // bytes of one part's k-tile
 constexpr int SLOT_BYTES = A_TILE + B_TILE;        // one part of A and of B
 constexpr int SMEM_BYTES = 1024 + SLOTS * SLOT_BYTES + 2 * SLOTS * 8 + sizeof(Moduli);
 static_assert(KC == 1, "a chain of KC k32 steps must sum at most 2^13");
-
-// -- PTX wrappers -----------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// Waits for the phase of `bar` with the given parity to complete. A wait of
-// more than ~2^34 cycles (seconds) can only be a broken pipeline: it traps,
-// so the launch fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  long long start = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1LL << 34)) {
-      __trap();
-    }
-  }
-}
-
-// Arrive on the barrier at the same shared offset in block `cta` of the
-// cluster (this block included).
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 r;\n"
-      "mapa.shared::cluster.u32 r, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [r];\n}\n" ::"r"(bar),
-      "r"(cta)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// TMA: the box at (c0 = k byte, c1 = row) of a 2-D map into shared memory,
-// completing on `bar`; tma_load_multicast writes it at the same offset into
-// every block of `mask` in the cluster and completes on each one's `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map, int c0,
-                                                   int c1, uint32_t bar, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle
-// (TMA's CU_TENSOR_MAP_SWIZZLE_128B): rows of 128 bytes, 8-row groups 1024
-// bytes apart (SBO), the leading offset unused; the tile base 1024-aligned,
-// a k32 step inside the row advances the start address by 32 bytes.
-__device__ __forceinline__ uint64_t desc_k128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-#define HG_D32                                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define HG_OUT32(c, d)                                                                    \
-  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]), c(d[8]),        \
-      c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15]), c(d[16]),      \
-      c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]),     \
-      c(d[25]), c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31])
-
-// One e4m3 m64n64k32 product into a fresh f32 fragment d (scale-d = 0).
-__device__ __forceinline__ void wgmma_e4m3_fresh(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.f32.e4m3.e4m3 " HG_D32
-      ", %32, %33, p, 1, 1;\n}\n"
-      : HG_OUT32("=f", d)
-      : "l"(da), "l"(db), "r"(0));
-}
-
-// One s8 m64n64k32 product added to the s32 accumulator d (scale-d = 1).
-__device__ __forceinline__ void wgmma_s8_acc(int (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " HG_D32 ", %32, %33, p;\n}\n"
-      : HG_OUT32("+r", d)
-      : "l"(da), "l"(db), "r"(1));
-}
+static_assert(BK == TMA_BOX_K, "a k-tile is one TMA box deep");
 
 // -- the kernel ---------------------------------------------------------------
 
@@ -241,27 +112,7 @@ struct Smem {
   uint32_t empty;   // SLOTS mbarriers: the slot's products are done
 };
 
-// A position in the ring: the slot and the parity of its current phase.
-struct Ring {
-  int slot = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void advance() {
-    if (++slot == SLOTS) {
-      slot = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-// Fragment (j of 32) of a consumer thread -> (row, col) in its 64 x 64 half:
-// the m64nNk32 accumulator layout, warp w of the group owning rows 16w..16w+15.
-__device__ __forceinline__ int frag_row(int j) {
-  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
-  return 16 * w + (lane >> 2) + 8 * ((j >> 1) & 1);
-}
-__device__ __forceinline__ int frag_col(int j) {
-  return 8 * (j >> 2) + 2 * (threadIdx.x & 3) + (j & 1);
-}
+using Ring = RingOf<SLOTS>;
 
 // One modulus over the whole contraction, then its centred residues into the
 // scratch plane l.
@@ -487,46 +338,6 @@ gemm_core_kernel(const __grid_constant__ Maps maps, Epilogue ep,
 }
 
 // -- host side ----------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no link against libcuda.
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-        cudaSuccess)
-      return nullptr;
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// The map of one K-major part stack of `rows` rows (N * m or N * n) of k
-// bytes, boxes of box_rows x BK, 128-byte swizzle.
-inline bool make_map(CUtensorMap* map, const uint8_t* base, long long rows, int k, int box_rows) {
-  EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k)};
-  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<uint8_t*>(base), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // Launch the core on `stream`: parts a[q] (N, m, k) and b[q] (N, n, k),
 // K-major, 16-byte aligned (a[1..2], b[1..2] NULL for int8; hs planes of

@@ -6,12 +6,19 @@ of ``repro/kernels/pipeline.py``), the ``+pallas+unfused`` executor:
 
 Every phase is exact, so the digits, and the f64 result, equal the core
 route's (``core.ozaki2.ozmm_ozaki2``) and the fused kernels' bit for bit.
-Between the phases the residue parts (N, m, k) / (N, k, n), the product
-stacks (N, m, n) and the digit stack (N, m, n) live in device memory: 9 GiB
-of f32 products at 8192^3 and N = 12, written in place by the GEMMs, with
-no pad or stack copy. The epilogue, a Kahan sum over the digit planes and
-``ldexp_wide``, is the reference's XLA epilogue, not a Pallas kernel, so it
-stays the core route's ``crt.reconstruct`` in PyTorch.
+B's residue parts are made K-major, (N, n, k), since the GEMMs' tensor-core
+instructions take 8-bit operands only K-major: K6 runs on B^T (``k_major``,
+one f64 copy; the residues are elementwise under a per-column exponent, so
+these are B's parts transposed, bit for bit), and a fast-mode plan's
+(N, k, n) stacks go through K2's ``transpose_parts`` once per call. Each
+GEMM then reads B^T's plane in place, as the K-major view ``plane.t()``: no
+B is copied in the schedule. Between the phases the residue parts
+(N, m, k) / (N, n, k), the product stacks (N, m, n) and the digit stack
+(N, m, n) live in device memory: 9 GiB of f32 products at 8192^3 and
+N = 12, written in place by the GEMMs, with no pad or stack copy. The
+epilogue, a Kahan sum over the digit planes and ``ldexp_wide``, is the
+reference's XLA epilogue, not a Pallas kernel, so it stays the core
+route's ``crt.reconstruct`` in PyTorch.
 
 ``ozmm_pallas`` takes 2-D operands (``core.gemm`` batches over leading
 dims); ``ozmm_pallas_prepared`` composes with ``core.plan``.
@@ -27,23 +34,24 @@ from repro_torch.core.plan import QuantizedMatrix, pair_exponents
 from .common import stack_parts
 from .crt_reconstruct import requant_garner
 from .fp8_gemm import fp8_gemm
+from .fused import transpose_parts
 from .int8_gemm import int8_gemm
 from .quant_residues import quant_residues_op
 
 
-def residue_gemms(sa, sb, ms: ModuliSet) -> tuple[torch.Tensor, ...]:
-    """The low-precision GEMM schedule over stacked residue operands, in the
-    reference's order, each product written into its plane of the product
-    stacks: (c1, c2, c3) float32 (N, m, n) for the fp8 families, (c,) int32
-    for int8."""
+def residue_gemms(sa, sbt, ms: ModuliSet) -> tuple[torch.Tensor, ...]:
+    """The low-precision GEMM schedule over stacked residue operands, A's
+    (N, m, k) and B's K-major (N, n, k), in the reference's order, each
+    product written into its plane of the product stacks: (c1, c2, c3)
+    float32 (N, m, n) for the fp8 families, (c,) int32 for int8."""
     if ms.family == "int8":
-        m, n = sa.shape[1], sb.shape[2]
+        m, n = sa.shape[1], sbt.shape[1]
         cs = torch.empty((ms.n, m, n), dtype=torch.int32, device=sa.device)
         for l in range(ms.n):
-            int8_gemm(sa[l], sb[l], out=cs[l])
+            int8_gemm(sa[l], sbt[l].t(), out=cs[l])
         return (cs,)
     a_hi, a_lo, a_hs = sa
-    b_hi, b_lo, b_hs = sb
+    b_hi, b_lo, b_hs = (t.transpose(1, 2) for t in sbt)  # (N, k, n) K-major views
     m, n = a_hi.shape[1], b_hi.shape[2]
     c1, c2, c3 = torch.empty((3, ms.n, m, n), dtype=torch.float32, device=a_hi.device)
     for l, sq in enumerate(ms.is_square):
@@ -58,10 +66,17 @@ def residue_gemms(sa, sb, ms: ModuliSet) -> tuple[torch.Tensor, ...]:
     return c1, c2, c3
 
 
-def _gemm_schedule(sa, sb, ms: ModuliSet) -> torch.Tensor:
+def k_major(b: torch.Tensor) -> torch.Tensor:
+    """B^T as a contiguous matrix: the one copy of B (f64) that the unprepared
+    and accurate prepared routes make, so that K6 writes B's parts K-major.
+    No copy when B is itself the transpose of a contiguous matrix."""
+    return b.t().contiguous()
+
+
+def _gemm_schedule(sa, sbt, ms: ModuliSet) -> torch.Tensor:
     """The GEMM schedule, then one requant/Garner pass -> digits (N, m, n)
     int16, radix order."""
-    return requant_garner(residue_gemms(sa, sb, ms), ms=ms)
+    return requant_garner(residue_gemms(sa, sbt, ms), ms=ms)
 
 
 def ozmm_pallas(a: torch.Tensor, b: torch.Tensor, *, family: str = "fp8-hybrid",
@@ -76,22 +91,24 @@ def ozmm_pallas(a: torch.Tensor, b: torch.Tensor, *, family: str = "fp8-hybrid",
     b = b.to(torch.float64)
     scal = scaling.compute_scaling(a, b, ms, mode)
     sa = quant_residues_op(a, scal.lmu, ms=ms, axis=0)
-    sb = quant_residues_op(b, scal.lnu, ms=ms, axis=1)
-    return crt.reconstruct(_gemm_schedule(sa, sb, ms), ms, scal.lmu, scal.lnu)
+    sbt = quant_residues_op(k_major(b), scal.lnu, ms=ms, axis=0)  # (N, n, k)
+    return crt.reconstruct(_gemm_schedule(sa, sbt, ms), ms, scal.lmu, scal.lnu)
 
 
 def ozmm_pallas_prepared(qa: QuantizedMatrix, qb: QuantizedMatrix) -> torch.Tensor:
     """Execute a prepared pairing (``core.plan``) on the phase-split kernel
     path, on the plans' device. Fast mode streams the plans' cached residue
-    parts (``stack_parts``) through the GEMM schedule; accurate mode derives
-    the pairing exponents from the cached casts (``pair_exponents``: the
-    bound GEMM, an f32 ``torch.matmul`` outside any kernel) and extracts the
-    residues with K6. Bitwise equal to ``ozmm_prepared`` in both modes."""
+    parts (``stack_parts``; B's made K-major by ``transpose_parts``) through
+    the GEMM schedule; accurate mode derives the pairing exponents from the
+    cached casts (``pair_exponents``: the bound GEMM, an f32 ``torch.matmul``
+    outside any kernel) and extracts the residues with K6, B's from B^T.
+    Bitwise equal to ``ozmm_prepared`` in both modes."""
     ms = qa.ms
     lmu, lnu = pair_exponents(qa, qb)
     if qa.mode == "fast":
-        sa, sb = stack_parts(qa.parts, ms), stack_parts(qb.parts, ms)
+        sa = stack_parts(qa.parts, ms)
+        sbt = transpose_parts(stack_parts(qb.parts, ms), ms=ms)
     else:
         sa = quant_residues_op(qa.x, lmu, ms=ms, axis=0)
-        sb = quant_residues_op(qb.x, lnu, ms=ms, axis=1)
-    return crt.reconstruct(_gemm_schedule(sa, sb, ms), ms, lmu, lnu)
+        sbt = quant_residues_op(k_major(qb.x), lnu, ms=ms, axis=0)
+    return crt.reconstruct(_gemm_schedule(sa, sbt, ms), ms, lmu, lnu)

@@ -217,9 +217,10 @@ def _need_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(200, 72, 300), (130, 96, 260), (1000, 997, 1003)])
 def test_residue_gemms_bitwise_vs_plain_on_card(shape):
-    """K3 and K4 at ragged shapes (byte-wise loads where k % 16 or n % 4 is
-    not 0, vector loads otherwise), written through an out= plane of a
-    stack, against their plain versions; edges past the plane untouched."""
+    """K3 and K4 at ragged shapes (the mma_sync route where k % 16 is not 0,
+    the wgmma route otherwise), with a contiguous B (transposed once by the
+    wrapper), written through an out= plane of a stack, against their plain
+    versions; edges past the plane untouched."""
     from repro_torch.kernels import fp8_gemm, fp8_gemm_plain, int8_gemm, int8_gemm_plain
 
     _need_card()
@@ -325,3 +326,103 @@ def test_unfused_route_on_card(spec):
     assert torch.equal(ozmm(qa, qb, spec + "+pallas+unfused"), got)
     quant = 0 if parse_policy(spec).mode == "fast" else 2
     assert tuple(x - y for x, y in zip(counts(), before)) == (quant, per_call, 1)
+
+
+def _residue_operands(rng, m, k, n, lim, dtype):
+    """A (m, k) and B^T (n, k) of random parts in [-lim, lim) on the card."""
+    def mk(shape):
+        return torch.tensor(rng.integers(-lim, lim, shape), dtype=torch.float32,
+                            device="cuda").to(dtype)
+
+    return mk((m, k)), mk((n, k))
+
+
+def _misaligned(x):
+    """A copy of x whose data starts 1 byte past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 16, dtype=torch.uint8, device=x.device)
+    y = buf[1:1 + x.numel()].view(x.dtype).view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,route", [((1024, 1024, 1024), "wgmma"),
+                                         ((1000, 1024, 1003), "wgmma"),
+                                         ((1000, 997, 1003), "mma_sync"),
+                                         ((128, 128, 1), "wgmma")],
+                         ids=["1024^3", "ragged-mn", "ragged-k", "hpl-fold"])
+def test_residue_gemm_routes_on_card(shape, route):
+    """K3 and K4 on a K-major B (the transpose of a contiguous (n, k) plane,
+    as the pipeline hands it) take the route the shape and alignment give,
+    copy no B, and equal their plain versions bit for bit; a misaligned A
+    sends the same product through the mma_sync route."""
+    from repro_torch.kernels import fp8_gemm, fp8_gemm_plain, int8_gemm, int8_gemm_plain
+    from repro_torch.kernels.fp8_gemm import residue_gemm_route
+
+    _need_card()
+    m, k, n = shape
+    rng = np.random.default_rng(16)
+    for kern, plain, lim, dtype in ((fp8_gemm, fp8_gemm_plain, 16, torch.float8_e4m3fn),
+                                    (int8_gemm, int8_gemm_plain, 128, torch.int8)):
+        a, bt = _residue_operands(rng, m, k, n, lim, dtype)
+        assert residue_gemm_route(k, a.data_ptr(), bt.data_ptr()) == route
+        want = plain(a, bt.t())
+        for x, via in ((a, route), (_misaligned(a), "mma_sync")):
+            before = dict(kern.launches_by_route), kern.b_copies
+            got = kern(x, bt.t())
+            assert kern.b_copies == before[1]
+            assert kern.launches_by_route[via] == before[0][via] + 1
+            assert torch.equal(got, want), (kern.__name__, via)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wgmma", "mma_sync"])
+def test_fp8_gemm_exact_at_k65536_on_card(route):
+    """K3 at k = 2^16 on both routes: all +16 parts sum to exactly 2^24, and
+    +16 then +1 (a small tail after a large running sum), against the int64
+    product."""
+    from repro_torch.kernels import fp8_gemm
+
+    _need_card()
+    k = 2 ** 16
+    idx = np.arange(k)
+    rows = np.stack([np.full(k, 16), np.where(idx < k // 2, 16, 1)] * 8)  # (16, k)
+    def f8(x):
+        return torch.tensor(x, dtype=torch.float32, device="cuda").to(torch.float8_e4m3fn)
+
+    a, bt = f8(rows), f8(rows[:8])
+    if route == "mma_sync":
+        a = _misaligned(a)
+    before = fp8_gemm.launches_by_route[route]
+    got = fp8_gemm(a, bt.t())
+    assert fp8_gemm.launches_by_route[route] == before + 1
+    want = torch.tensor(rows) @ torch.tensor(rows[:8]).T
+    assert int(want.max()) == 2 ** 24
+    assert torch.equal(got.cpu().long(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["ozaki2-fp8/fast", "ozaki2-karatsuba/accurate",
+                                  "ozaki2-int8/fast"])
+def test_unfused_route_k_major_on_card(spec):
+    """'+pallas+unfused' at k % 16 == 0 (the GEMMs' wgmma route) and at a
+    ragged k (mma_sync), raw and prepared: bitwise equal to '+core', every
+    GEMM on the route its shape gives, and no B copied."""
+    from repro_torch import prepare_operand
+    from repro_torch import kernels as kn
+
+    _need_card()
+    rng = np.random.default_rng(17)
+    ms = parse_policy(spec).moduli_set()
+    gemm = kn.int8_gemm if ms.family == "int8" else kn.fp8_gemm
+    per_call = ms.n if ms.family == "int8" else 3 * ms.n
+    for k, route in ((320, "wgmma"), (301, "mma_sync")):
+        a = torch.from_numpy(_lognormal(rng, (200, k), 2.0)).cuda()
+        b = torch.from_numpy(_lognormal(rng, (k, 130), 2.0)).cuda()
+        qa, qb = prepare_operand(a, "lhs", spec), prepare_operand(b, "rhs", spec)
+        before, copies = gemm.launches_by_route[route], gemm.b_copies
+        got = ozmm(a, b, spec + "+pallas+unfused")
+        assert torch.equal(got, ozmm(a, b, spec + "+core"))
+        assert torch.equal(ozmm(qa, qb, spec + "+pallas+unfused"), ozmm(qa, qb, spec + "+core"))
+        assert gemm.launches_by_route[route] == before + 2 * per_call
+        assert gemm.b_copies == copies

@@ -99,17 +99,19 @@ def test_decompose_int_bitwise(rng):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("which", ["fp8", "int8"])
+@pytest.mark.parametrize("which", ["fp8", "int8", "fp8-kmajor", "int8-kmajor"])
 def test_residue_gemm_bitwise(which):
     """K3 (e4m3 -> f32) and K4 (int8 -> int32) at (m, n, k) = (200, 72,
     300), into a fresh tensor and into an ``out=`` plane, against the
-    Pallas kernels in interpret mode."""
+    Pallas kernels in interpret mode; B contiguous, or K-major (the
+    transpose of a contiguous (n, k) plane, as the pipeline hands it)."""
     rng = np.random.default_rng(3)
     m, n, k = 200, 72, 300
-    lim = 16 if which == "fp8" else 128
-    a = rng.integers(-lim, lim + (which == "fp8"), (m, k))
-    b = rng.integers(-lim, lim + (which == "fp8"), (k, n))
-    if which == "fp8":
+    family = which.split("-")[0]
+    lim = 16 if family == "fp8" else 128
+    a = rng.integers(-lim, lim + (family == "fp8"), (m, k))
+    b = rng.integers(-lim, lim + (family == "fp8"), (k, n))
+    if family == "fp8":
         ja = jnp.asarray(a, jnp.float32).astype(jnp.float8_e4m3fn)
         jb = jnp.asarray(b, jnp.float32).astype(jnp.float8_e4m3fn)
         want = np.asarray(jax_fp8_gemm_op(ja, jb, interpret=True))
@@ -121,6 +123,8 @@ def test_residue_gemm_bitwise(which):
                                            interpret=True))
         ta, tb = torch.tensor(a, dtype=torch.int8), torch.tensor(b, dtype=torch.int8)
         kern, plain, out_dtype = kn.int8_gemm, kn.int8_gemm_plain, torch.int32
+    if which.endswith("kmajor"):
+        tb = tb.t().contiguous().t()
     calls, launches = plain.calls, kern.launches
     np.testing.assert_array_equal(kern(ta, tb).numpy(), want)
     stack = torch.zeros((2, m, n), dtype=out_dtype)
