@@ -9,7 +9,8 @@ script exits non-zero without printing a result:
 
 1. card: name and power limit; build of the CUDA kernels from csrc/ (one
    nvcc per source, all started together), with ptxas's registers, shared
-   memory, spills and wgmma serialization notes (C75xx) of each kernel.
+   memory, stack frame, spills and wgmma serialization notes (C75xx) of
+   each kernel; K5's and K6's must have no stack frame and no spill.
 2. MMA probes: K3/K4's mma.sync k32 FP8 step, and the K1/K2 GEMM core's
    wgmma step (each k32 product into a fresh f32 fragment, promoted into an
    f32 sum), on +-16 and mixed e4m3 patterns at k up to 65536 against an
@@ -55,11 +56,16 @@ script exits non-zero without printing a result:
    and accurate (K1) mode; one Cholesky refine_solve of an SPD matrix at
    n = 2048 (SYRK's plan x plan tiles on K2), its K2 calls checked the same
    way.
-8. the phase-split '+pallas+unfused' pipeline: K6 (quant_residues), K3
-   (fp8_gemm), K4 (int8_gemm) and K5 (requant_garner) each bitwise against
-   its plain version at 1024^3, 1000x1024x1003, 1000x997x1003 and the
-   main-path size (e4m3 as bytes), on the pipeline's operands (B's parts
-   K-major, from K6 on B^T, itself checked against K6 on B transposed): K3
+8. the phase-split '+pallas+unfused' pipeline: K6 (quant_residues: its
+   f64 entry, which the path runs, and its frame entry), K3 (fp8_gemm), K4
+   (int8_gemm) and K5 (requant_garner: its f64 mode, which the path runs,
+   and its digits mode) each bitwise against its plain version at 1024^3,
+   1000x1024x1003, 1000x997x1003 and the main-path size (e4m3 as bytes), on
+   the pipeline's operands (B's parts K-major, from K6 on B^T, itself
+   checked against K6 on B by columns, transposed), and K6's two entries
+   against each other and on an edge matrix (zeros, subnormals, 1e+-300,
+   +-(2^53 - 1), scales past 1023); accurate scaling's exponents at 1024^3
+   equal with the global TF32 switch on and off; K3
    and K4 on the route the shape gives (wgmma where k % 16 == 0, else
    mma_sync) and, where that is wgmma, modulus 0's products again through
    the mma_sync route (A 1 byte off alignment); K3 also against
@@ -74,10 +80,11 @@ script exits non-zero without printing a result:
    accurate) on '+pallas+unfused' against '+core'; lu_factor + lu_solve at
    n = 1024 on '+pallas+unfused' against '+core'; timings (median of 5
    after a warm-up) of each kernel on the pipeline's own operands (B
-   K-major, so no transpose is timed), its plain version, its library call
-   and its bound, K3/K4 also on the mma_sync route, and one ozmm call split
-   into scaling, B's f64 transpose, scaled_int + decompose_int, K6, the
-   K3/K4 total, K5 and the torch epilogue.
+   K-major, so no transpose is timed; K5 and K6 in both modes), its plain
+   version, its library call and its bound, K3/K4 also on the mma_sync
+   route, and one ozmm call split into scaling, B's f64 transpose, K6, the
+   K3/K4 total and K5, with the PyTorch passes the card's route no longer
+   runs (scaled_int, decompose_int, crt.reconstruct) required at 0 calls.
 
 The last two lines are the card (nvidia-smi name, power limit) and
 {"ok": true, "device": {...}}; before them a {"kernels": [...]} line.
@@ -347,6 +354,31 @@ def misaligned(x):
     return y.copy_(x)
 
 
+def edge_matrix(rng, k: int, device):
+    """K6's edge inputs, (12, k) f64 and per-row log2 scales: rows of zeros,
+    signed values, subnormals, values near 1e-300 and 1e300, signed integers
+    near 2^53, powers of two and values up to the f64 maximum, under scales
+    that include 1074 and 1100 (past ldexp_wide's single-factor range)."""
+    import numpy as np
+    import torch
+
+    a = (rng.random((12, k)) - 0.5) * np.exp(rng.standard_normal((12, k)) * 2.0)
+    sign = np.where(np.arange(k) % 2 == 0, 1.0, -1.0)
+    a[0] = 0.0
+    a[1, : k // 2] *= -1.0
+    a[2] = rng.choice([5e-324, -5e-324, 1e-310, -2.2250738585072014e-308, 0.0, -0.0], k)
+    a[3] *= 1e-300
+    a[4] *= 1e300
+    a[5] = rng.integers(-2 ** 53, 2 ** 53, k).astype(np.float64)
+    a[6] = np.ldexp(sign, rng.integers(0, 60, k))
+    a[7] = (2.0 ** 53 - 1) * sign
+    a[8] = np.finfo(np.float64).max * (rng.random(k) - 0.5)
+    a[9] = rng.choice([1e-320, -3e-315, 4.9e-324], k)
+    a[10] *= 1e-305
+    lscale = np.array([5, 40, 1074, 1000, -900, 0, 0, 1, -1020, 1100, 1050, 60], dtype=np.int32)
+    return torch.from_numpy(a).to(device), torch.from_numpy(lscale).to(device)
+
+
 def unfused_phase(args, dev, gen) -> list[dict]:
     """Phase 8 (module docstring): the phase-split pipeline's kernels K3-K6
     against their plain versions and oracles, the '+pallas+unfused' path,
@@ -360,11 +392,13 @@ def unfused_phase(args, dev, gen) -> list[dict]:
     from repro_torch.core.plan import pow2_tables
     from repro_torch.kernels import pipeline
     from repro_torch.kernels.fp8_gemm import ROUTES, reset_counts, residue_gemm_route
+    from repro_torch.kernels.quant_residues import kernel as k6_module
     from repro_torch.kernels.quant_residues import ops as qr_ops
     from repro_torch.precision import parse_policy
 
     big = args.size
-    kernels = (kn.quant_residues, kn.fp8_gemm, kn.int8_gemm, kn.requant_garner)
+    # the path's kernels: K6 through its f64 entry, the GEMMs, K5 (f64 mode)
+    kernels = (kn.quant_residues_f64, kn.fp8_gemm, kn.int8_gemm, kn.requant_garner)
     gemms = (kn.fp8_gemm, kn.int8_gemm)
     one = torch.ones((), dtype=torch.float32, device=dev)
 
@@ -407,18 +441,25 @@ def unfused_phase(args, dev, gen) -> list[dict]:
             tables = pow2_tables(ms, dev)
             sides = []
             for what, x, lscale in (("A", a, scal.lmu), ("B^T", pipeline.k_major(b), scal.lnu)):
+                got = kn.quant_residues_f64(x, lscale, tables, ms=ms)
+                plain = kn.quant_residues_f64_plain(x, lscale, tables, ms=ms)
                 fr = frames(x, lscale, 0)
-                got = kn.quant_residues(*fr, tables, ms=ms)
-                plain = kn.quant_residues_plain(*fr, tables, ms=ms)
+                got_fr = kn.quant_residues(*fr, tables, ms=ms)
+                plain_fr = kn.quant_residues_plain(*fr, tables, ms=ms)
                 torch.cuda.synchronize()
-                for i, (g, w) in enumerate(zip(stacks(got), stacks(plain))):
+                for i, (g, w, gf, wf) in enumerate(zip(*map(stacks, (got, plain, got_fr,
+                                                                       plain_fr)))):
                     check_equal(as_bytes(g), as_bytes(w),
-                                f"K6 {spec} {m}x{k}x{n} {what} stack {i} vs plain version")
+                                f"K6 f64 entry {spec} {m}x{k}x{n} {what} stack {i} vs plain")
+                    check_equal(as_bytes(gf), as_bytes(wf),
+                                f"K6 frame entry {spec} {m}x{k}x{n} {what} stack {i} vs plain")
+                    check_equal(as_bytes(gf), as_bytes(g),
+                                f"K6 {spec} {m}x{k}x{n} {what} stack {i}: frame vs f64 entry")
                 sides.append(got)
-                del fr, plain
+                del fr, plain, got_fr, plain_fr
             sa, sbt = sides
             # B's parts from B^T are B's parts (per-column exponents) transposed
-            by_col = kn.quant_residues(*frames(b, scal.lnu, 1), tables, ms=ms)
+            by_col = kn.quant_residues_f64(b, scal.lnu, tables, ms=ms, axis=1)
             for i, (g, w) in enumerate(zip(stacks(sbt), stacks(by_col))):
                 check_equal(as_bytes(g), as_bytes(w.transpose(1, 2).contiguous()),
                             f"K6 {spec} {m}x{k}x{n}: B^T's stack {i} vs B's transposed")
@@ -465,15 +506,56 @@ def unfused_phase(args, dev, gen) -> list[dict]:
                 oracle = "no oracle (shape)"
             digits = kn.requant_garner(cparts, ms=ms)
             check_equal(digits, kn.requant_garner_plain(cparts, ms=ms),
-                        f"K5 {spec} {m}x{k}x{n} vs plain version")
+                        f"K5 digits mode {spec} {m}x{k}x{n} vs plain version")
+            c = kn.requant_garner(cparts, ms=ms, lmu=scal.lmu, lnu=scal.lnu)
+            check_equal(c, kn.requant_garner_plain(cparts, ms=ms, lmu=scal.lmu, lnu=scal.lnu),
+                        f"K5 f64 mode {spec} {m}x{k}x{n} vs plain version")
             torch.cuda.synchronize()
-            print(f"  {spec:24s} {m}x{k}x{n}: K6 (A and B^T; B^T's == B's transposed), {gemm} "
-                  f"({len(cparts)} x {ms.n} planes, {routes_done}), K5 == plain versions "
-                  f"(bitwise); {gemm} plane 0 == {oracle}", flush=True)
-            del sa, sbt, sides, cparts, digits, x, y
+            print(f"  {spec:24s} {m}x{k}x{n}: K6 f64 and frame entries (A and B^T; B^T's == "
+                  f"B's by columns, transposed), {gemm} ({len(cparts)} x {ms.n} planes, "
+                  f"{routes_done}), K5 digits and f64 modes == plain versions (bitwise); "
+                  f"{gemm} plane 0 == {oracle}", flush=True)
+            del sa, sbt, sides, cparts, digits, c, x, y
             torch.cuda.empty_cache()
         del a, b
         torch.cuda.empty_cache()
+
+    # -- K6 on edge inputs: both entries against the plain versions ----------
+    for spec in (*specs, "ozaki2-fp8/fast@20"):
+        ms = parse_policy(spec).moduli_set()
+        tables = pow2_tables(ms, dev)
+        for k in (301, 304):  # the scalar path, the 16-byte path
+            x, lscale = edge_matrix(np.random.default_rng(args.seed + 4), k, dev)
+            want = kn.quant_residues_f64_plain(x, lscale, tables, ms=ms)
+            got = kn.quant_residues_f64(x, lscale, tables, ms=ms)
+            got_fr = kn.quant_residues(*frames(x, lscale, 0), tables, ms=ms)
+            for i, (g, gf, w) in enumerate(zip(*map(stacks, (got, got_fr, want)))):
+                check_equal(as_bytes(g), as_bytes(w), f"K6 f64 entry {spec} edge matrix "
+                                                      f"k={k} stack {i} vs plain version")
+                check_equal(as_bytes(gf), as_bytes(w), f"K6 frame entry {spec} edge matrix "
+                                                       f"k={k} stack {i} vs plain version")
+    print(f"  K6 edge matrix (zeros, signs, subnormals, 1e+-300, +-(2^53 - 1), f64 max, "
+          f"lscale up to 1100) at k = 301 and 304: both entries == plain versions for "
+          f"{len(specs) + 1} policies", flush=True)
+
+    # -- the bound GEMM under the global TF32 switch --------------------------
+    a, b = lognormal(gen, (1024, 1024), 0.5, dev), lognormal(gen, (1024, 1024), 0.5, dev)
+    ms = parse_policy("ozaki2-fp8/accurate").moduli_set()
+    switch = torch.backends.cuda.matmul
+    prev, exps = switch.allow_tf32, {}
+    try:
+        for on in (False, True):
+            switch.allow_tf32 = on
+            exps[on] = scaling.compute_scaling(a, b, ms, "accurate")
+            check(switch.allow_tf32 == on, "the bound GEMM left the TF32 switch changed")
+    finally:
+        switch.allow_tf32 = prev
+    check(torch.equal(exps[True].lmu, exps[False].lmu)
+          and torch.equal(exps[True].lnu, exps[False].lnu),
+          "accurate scaling's exponents at 1024^3 change with the global TF32 switch")
+    print("  accurate scaling 1024^3: lmu, lnu equal with the global TF32 switch on and off",
+          flush=True)
+    del a, b
 
     # -- K3's exactness at k = 65536, both routes --------------------------
     a8, b8, want = probe_operands(65536, dev)
@@ -491,7 +573,8 @@ def unfused_phase(args, dev, gen) -> list[dict]:
 
     # -- the main path: ozmm(..., "+pallas+unfused") for the four policies --
     a, b = lognormal(gen, (big, big), 0.5, dev), lognormal(gen, (big, big), 0.5, dev)
-    kn.quant_residues.launches = kn.requant_garner.launches = 0
+    kn.quant_residues_f64.launches = kn.quant_residues.launches = 0
+    kn.requant_garner.launches = 0
     for g in gemms:
         reset_counts(g)
     out = {spec: ozmm(a, b, spec + UNFUSED) for spec in POLICIES}
@@ -503,6 +586,7 @@ def unfused_phase(args, dev, gen) -> list[dict]:
     route = residue_gemm_route(big, 0, 0)
     want_routes = tuple(want[1 + i // 2] if ROUTES[i % 2] == route else 0
                         for i in range(4)) + (0,)
+    check(kn.quant_residues.launches == 0, "the main path launched K6's frame entry")
     print(f"  main path: (K6, K3, K4, K5) launches {main_launches} for {len(POLICIES)} ozmm "
           f"calls, predicted {want}; (K3 wgmma, K3 mma_sync, K4 wgmma, K4 mma_sync, B copies) "
           f"{main_routes}, predicted {want_routes}", flush=True)
@@ -573,7 +657,7 @@ def unfused_phase(args, dev, gen) -> list[dict]:
         scal = scaling.compute_scaling(a, b, ms, "fast")
         tables = pow2_tables(ms, dev)
         fr = frames(a, scal.lmu, 0)
-        sa = kn.quant_residues(*fr, tables, ms=ms)
+        sa = kn.quant_residues_f64(a, scal.lmu, tables, ms=ms)
         sbt = qr_ops.quant_residues_op(pipeline.k_major(b), scal.lnu, ms=ms, axis=0)
         x, y = first_pair(sa, sbt, ms, 0)  # y: B's plane, K-major as the pipeline hands it
         xm = misaligned(x)
@@ -588,9 +672,17 @@ def unfused_phase(args, dev, gen) -> list[dict]:
         else:
             gemm_lib = lambda: torch._scaled_mm(x, y, scale_a=one, scale_b=one,  # noqa: E731
                                                 out_dtype=torch.float32, use_fast_accum=False)
-        cases = [
-            ("quant_residues", "K6", "src/repro_torch/csrc/quant_residues.cu",
-             "src/repro/kernels/quant_residues/kernel.py:77", main_launches[0],
+        k6_src = ("src/repro_torch/csrc/quant_residues.cu",
+                  "src/repro/kernels/quant_residues/kernel.py:77")
+        k5_src = ("src/repro_torch/csrc/requant_garner.cu",
+                  "src/repro/kernels/crt_reconstruct/kernel.py:71")
+        lmu, lnu = scal.lmu, scal.lnu
+        cases = [  # the f64 entry / f64 mode is the path's; the others beside it
+            ("quant_residues", "K6", *k6_src, main_launches[0],
+             lambda: kn.quant_residues_f64(a, lmu, tables, ms=ms),
+             lambda: kn.quant_residues_f64_plain(a, lmu, tables, ms=ms), None,
+             (8 + n_out) * big * big + 4 * big + 4 * ms.n * 1024, 0),
+            ("quant_residues", "K6-frame", *k6_src, 0,
              lambda: kn.quant_residues(*fr, tables, ms=ms),
              lambda: kn.quant_residues_plain(*fr, tables, ms=ms), None,
              (12 + n_out) * big * big + 4 * ms.n * 1024, 0),
@@ -601,8 +693,11 @@ def unfused_phase(args, dev, gen) -> list[dict]:
              main_launches[2] if int8 else main_launches[1],
              lambda: gemm_kern(x, y, out=plane), lambda: gemm_plain(x, y), gemm_lib,
              2 * big * big + 4 * big * big, 2 * mnk),
-            ("requant_garner", "K5", "src/repro_torch/csrc/requant_garner.cu",
-             "src/repro/kernels/crt_reconstruct/kernel.py:71", main_launches[3],
+            ("requant_garner", "K5", *k5_src, main_launches[3],
+             lambda: kn.requant_garner(cparts, ms=ms, lmu=lmu, lnu=lnu),
+             lambda: kn.requant_garner_plain(cparts, ms=ms, lmu=lmu, lnu=lnu), None,
+             (n_out * 4 + 8) * big * big + 8 * big, 0),
+            ("requant_garner", "K5-digits", *k5_src, 0,
              lambda: kn.requant_garner(cparts, ms=ms),
              lambda: kn.requant_garner_plain(cparts, ms=ms), None,
              n_out * 4 * big * big + ms.n * 2 * big * big, 0),
@@ -629,13 +724,15 @@ def unfused_phase(args, dev, gen) -> list[dict]:
             lib_txt = f"{ms_l:.3f} ms" if ms_l is not None else "none"
             if "mma_sync_ms" in row:
                 lib_txt += f", mma_sync route {row['mma_sync_ms']:.3f} ms"
-            print(f"  {tag} {name:15s} {spec:18s} kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, "
+            print(f"  {tag:9s} {name:15s} {spec:18s} kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, "
                   f"library {lib_txt}, bound {row['bound_ms']:.3f} ms ({row['bound_by']}), "
                   f"launches {launches}, max|kernel-plain| {err}", flush=True)
         del fr, sa, sbt, x, xm, y, plane, cparts
         torch.cuda.empty_cache()
     check(all(r["max_abs_err"] == 0.0 for r in detail), "a K3-K6 kernel and its plain version "
                                                           "differ")
+    check(all(r["launches"] > 0 for r in detail if r["tag"] in ("K3", "K4", "K5", "K6")),
+          "a kernel of the unfused main path was never launched on it")
     for tag in ("K3", "K4", "K5", "K6"):
         rows.append(next(r for r in detail if r["tag"] == tag))
 
@@ -643,11 +740,13 @@ def unfused_phase(args, dev, gen) -> list[dict]:
     split = []
     for spec in ("ozaki2-fp8/accurate", "ozaki2-int8/fast"):
         total = cuda_ms(lambda: ozmm(a, b, spec + UNFUSED), 3)
+        # the PyTorch passes the card's route no longer runs (the frame, the
+        # epilogue) are wrapped where the plain versions would call them
         with CallTotals(scaling, "compute_scaling") as t_scal, \
                 CallTotals(pipeline, "k_major") as t_bt, \
                 CallTotals(quantize, "scaled_int") as t_int, \
-                CallTotals(qr_ops, "decompose_int") as t_dec, \
-                CallTotals(qr_ops, "quant_residues") as t_k6, \
+                CallTotals(k6_module, "decompose_int") as t_dec, \
+                CallTotals(qr_ops, "quant_residues_f64") as t_k6, \
                 CallTotals(pipeline, "fp8_gemm") as t_k3, \
                 CallTotals(pipeline, "int8_gemm") as t_k4, \
                 CallTotals(pipeline, "requant_garner") as t_k5, \
@@ -658,10 +757,15 @@ def unfused_phase(args, dev, gen) -> list[dict]:
                   "decompose_int": t_dec, "K6": t_k6, "K3": t_k3, "K4": t_k4, "K5": t_k5,
                   "epilogue": t_epi}
         entry = {"policy": spec + UNFUSED, "shape": [big, big, big], "ozmm_ms": total,
-                 **{f"{k}_ms": v.seconds() * 1e3 for k, v in layers.items()}}
+                 **{f"{k}_ms": v.seconds() * 1e3 for k, v in layers.items()},
+                 **{f"{k}_calls": len(v.spans) for k, v in layers.items()}}
         split.append(entry)
         print(f"  {spec}{UNFUSED} {big}^3: ozmm {total:.2f} ms = " + " + ".join(
-            f"{k} {entry[f'{k}_ms']:.2f}" for k in layers) + " + rest", flush=True)
+            f"{k} {entry[f'{k}_ms']:.2f} ({entry[f'{k}_calls']})" for k in layers)
+            + " + rest [ms (calls)]", flush=True)
+        check(t_int.spans == t_dec.spans == t_epi.spans == [],
+              f"{spec}{UNFUSED}: the card's route called scaled_int, decompose_int or "
+              "crt.reconstruct")
     del a, b
     torch.cuda.empty_cache()
     print(json.dumps({"unfused_kernels": detail, "unfused_split": split}))
@@ -719,13 +823,20 @@ def main() -> int:
         log = build.library_path(source).with_suffix(".log")
         entry = "?"
         for line in log.read_text().splitlines() if log.exists() else ():
-            found = re.search(r"Compiling entry function '\w*?(\d+)([a-z_]+kernel)(ILb([01])E)?",
-                              line)
-            if found:
-                entry = found.group(2) + ("" if found.group(4) is None else
-                                          f"<{'true' if found.group(4) == '1' else 'false'}>")
+            found = re.search(r"Compiling entry function '\w*?(\d+)([a-z_]+kernel)"
+                              r"((?:I?L[bi]\d+E)*)", line)
+            if found:  # the template arguments: bools, then K5's NMAX
+                targs = [{"b0": "false", "b1": "true"}.get(t + v, v)
+                         for t, v in re.findall(r"L([bi])(\d+)E", found.group(3))]
+                entry = found.group(2) + (f"<{', '.join(targs)}>" if targs else "")
             elif any(w in line for w in ("registers", "spill", "smem", "(C75")):
                 print(f"  ptxas {source} {entry}: {line.strip()}")
+                # K5 and K6 keep every value in registers: no spill, no stack
+                frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                  r"(\d+) bytes spill loads", line)
+                if source in ("requant_garner.cu", "quant_residues.cu") and frame:
+                    check(all(int(x) == 0 for x in frame.groups()),
+                          f"ptxas: {source} {entry} has a stack frame or spills: {line.strip()}")
     t0 = phase("1 card+build", t0)
 
     # ---- 2. MMA probe -----------------------------------------------------

@@ -206,17 +206,23 @@ def plan_source(q: QuantizedMatrix) -> torch.Tensor:
 
 def backend_matmul(a, b, policy=None, preferred_dtype: torch.dtype | None = None,
                    *, device=None) -> torch.Tensor:
-    """Matmul router: native policies run a plain matmul in the inputs'
-    dtype, emulated ones ``ozmm`` (f64 out, cast to ``preferred_dtype`` when
-    given). Either side may be a prepared ``QuantizedMatrix``."""
+    """Matmul router: native policies run a plain matmul, in
+    ``preferred_dtype`` when given (the reference's
+    ``preferred_element_type``: the inputs are cast and the product is
+    accumulated in that type) and in the inputs' dtype otherwise; emulated
+    ones ``ozmm`` (f64 out, cast to ``preferred_dtype`` when given). Either
+    side may be a prepared ``QuantizedMatrix``."""
     pol = resolve_policy(policy)
     a_prep, b_prep = isinstance(a, QuantizedMatrix), isinstance(b, QuantizedMatrix)
     if not pol.is_emulated:
         a = plan_source(a) if a_prep else a
         b = plan_source(b) if b_prep else b
         dev = (a if a_prep else b).device if (a_prep or b_prep) else resolve_device(device)
-        out = torch.matmul(torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev))
-    elif a_prep or b_prep:
+        a, b = (torch.as_tensor(x, device=dev) for x in (a, b))
+        if preferred_dtype is not None:
+            a, b = a.to(preferred_dtype), b.to(preferred_dtype)
+        return torch.matmul(a, b)
+    if a_prep or b_prep:
         for q in (a, b):
             if isinstance(q, QuantizedMatrix):
                 _check_plan_matches_policy(q, pol)

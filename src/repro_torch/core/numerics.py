@@ -137,9 +137,20 @@ def kahan_weighted_sum(digits: torch.Tensor, weights) -> torch.Tensor:
 
 def matmul_exact_fp8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """e4m3 x e4m3 -> f32 product, computed as an f32 matmul of the e4m3->f32
-    casts. Exact for integer entries |x| <= 16 while k*2^8 <= 2^24; e4m3
-    values are exact in TF32 too, so the global TF32 switch changes nothing."""
-    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+    casts: exact for integer entries |x| <= 16 while k*2^8 <= 2^24, and the
+    accurate-mode bound GEMM (``scaling.scaling_accurate``), whose inflation
+    (1 + k 2^-24) assumes true f32 accumulation. The inputs are exact in TF32,
+    but a TF32 tensor core's accumulation is not known to be f32's, so the
+    call runs with the global TF32 switch off
+    (``torch.backends.cuda.matmul.allow_tf32``) and restores the caller's
+    setting after."""
+    matmul = torch.backends.cuda.matmul
+    allow_tf32 = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+    finally:
+        matmul.allow_tf32 = allow_tf32
 
 
 def matmul_exact_int8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

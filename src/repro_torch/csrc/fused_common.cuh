@@ -2,8 +2,9 @@
 // parameter block (every kernel), the mma.sync FP8/int8 step and its
 // fragment loads (the mma_sync route of K3/K4, residue_gemm.cu, and the
 // mma.sync probe of fused_raw.cu), and the f64 epilogue of the fused kernels
-// (finalize: Garner digits, Kahan sum, ldexp_wide), which the Hopper GEMM
-// core of K1/K2 (hopper_gemm.cuh) runs on each element of its tile.
+// (garner, finalize: Garner digits, Kahan sum, ldexp_wide), which the Hopper
+// GEMM core of K1/K2 (hopper_gemm.cuh) runs on each element of its tile and
+// K5 (requant_garner.cu) on each element of C.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,7 +29,8 @@ template <int KIND>
 constexpr int kAccs = KIND == KIND_INT8 ? 1 : 3;
 
 // Moduli constants, passed by value (__grid_constant__) and copied to shared
-// memory for dynamic indexing.
+// memory for dynamic indexing; read at constant indices (garner, finalize)
+// straight from the parameter, they are instruction operands.
 struct Moduli {
   int n;
   int ps[MAXN];           // selection order
@@ -36,8 +38,12 @@ struct Moduli {
   int kind[MAXN];
   int radix_order[MAXN];  // Garner digit i reads the residue of ps[radix_order[i]]
   int radix_ps[MAXN];
-  int inv[MAXN * MAXN];   // inv[j * MAXN + i] = radix_ps[j]^-1 mod radix_ps[i]
   double w[MAXN];         // radix weights, float64
+  // the Garner steps' constants as f32 (garner): radix_ps, RN(1/radix_ps),
+  // floor((radix_ps - 1) / 2), and rinv[j * MAXN + i] = radix_ps[j]^-1 mod
+  // radix_ps[i].
+  float rp[MAXN], rip[MAXN], rhalf[MAXN];
+  float rinv[MAXN * MAXN];
 };
 
 // The parameter block from the host arrays of the C entry points (num_moduli
@@ -54,7 +60,11 @@ inline Moduli make_moduli(int num_moduli, const int* ps, const int* split_s, con
     mod.radix_order[i] = radix_order[i];
     mod.radix_ps[i] = radix_ps[i];
     mod.w[i] = weights[i];
-    for (int j = 0; j < num_moduli; ++j) mod.inv[j * MAXN + i] = inv[j * num_moduli + i];
+    mod.rp[i] = static_cast<float>(radix_ps[i]);
+    mod.rip[i] = 1.0f / mod.rp[i];  // IEEE division: RN(1/p), as __frcp_rn
+    mod.rhalf[i] = static_cast<float>((radix_ps[i] - 1) / 2);
+    for (int j = 0; j < num_moduli; ++j)
+      mod.rinv[j * MAXN + i] = static_cast<float>(inv[j * num_moduli + i]);
   }
   return mod;
 }
@@ -122,36 +132,57 @@ __device__ __forceinline__ int cmod_small(int x, int p, float ip) {
   return ozaki::centered(r, p);
 }
 
+// Balanced Garner digits (radix order) of E elements, as exact f32
+// integers, interleaved step by step so that their dependency chains
+// overlap. t[u] holds element u's centred residues in radix order (t[u][d]
+// belongs to modulus ps[radix_order[d]]). The loops run to NMAX (<= MAXN,
+// at least N) with a guard on N, so every index is a constant and the
+// digits stay in registers; entries past NMAX are never touched.
+//
+// Each step (crt.garner_digits) is x = cmod((x - digit_j) * inv_j, p_d) on
+// exact f32 integers, with f32 FMAs alone (cmod_small's int/float
+// conversions issue several times slower). Only the digit must be the
+// centred residue, so the steps before the last keep x by ozaki::mod_near
+// (|x| <= p_d/2 + 1) and the last one takes ozaki::cmod_exact: |x -
+// digit_j| <= 545.5 + 544 and inv_j < p_d <= 1089 keep every product below
+// 2^21. The reference's last cmod of each digit is the identity: t and the
+// last step's result are already centred mod p_d.
+template <int E, int NMAX = MAXN>
+__device__ __forceinline__ void garner(const Moduli& M, const int (&t)[E][MAXN],
+                                       float (&digits)[E][MAXN]) {
+  static_assert(NMAX <= MAXN, "NMAX exceeds the parameter block");
+  const int n = M.n;
+#pragma unroll
+  for (int d = 0; d < NMAX; ++d) {
+    if (d < n) {
+      const float p = M.rp[d], ip = M.rip[d], half = M.rhalf[d];
+      float x[E];
+#pragma unroll
+      for (int u = 0; u < E; ++u) x[u] = ozaki::small_to_float(t[u][d]);
+#pragma unroll
+      for (int j = 0; j < d; ++j) {  // crt.garner_digits' step, E at a time
+        const float inv = M.rinv[j * MAXN + d];
+#pragma unroll
+        for (int u = 0; u < E; ++u) {
+          const float y = __fmul_rn(__fsub_rn(x[u], digits[u][j]), inv);
+          x[u] = j + 1 < d ? ozaki::mod_near(y, p, ip) : ozaki::cmod_exact(y, p, ip, half);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < E; ++u) digits[u][d] = x[u];
+    }
+  }
+}
+
 // Garner digits, Kahan f64 sum in radix order, ldexp_wide (_finalize) of
-// E elements of C, interleaved step by step so that their dependency chains
-// overlap; each element's own order of operations is the reference's. t[u]
-// holds element u's centred residues in radix order (t[u][d] belongs to
-// modulus ps[radix_order[d]]), e[u] is -(lmu_i + lnu_j). The loops run to
-// MAXN with a guard on N, so every index is a constant and the digits stay
-// in registers.
-template <int E>
+// E elements of C (garner's t and NMAX), e[u] = -(lmu_i + lnu_j); each
+// element's own order of operations is the reference's.
+template <int E, int NMAX = MAXN>
 __device__ __forceinline__ void finalize(const Moduli& M, const int (&t)[E][MAXN],
                                          const int (&e)[E], double (&v)[E]) {
   const int n = M.n;
-  int digits[E][MAXN];
-#pragma unroll
-  for (int d = 0; d < MAXN; ++d) {
-    if (d < n) {
-      const int pd = M.radix_ps[d];
-      const float ip = __frcp_rn(static_cast<float>(pd));
-      int x[E];
-#pragma unroll
-      for (int u = 0; u < E; ++u) x[u] = t[u][d];
-#pragma unroll
-      for (int j = 0; j < d; ++j) {  // ozaki::garner_digit, E at a time
-        const int inv = M.inv[j * MAXN + d];
-#pragma unroll
-        for (int u = 0; u < E; ++u) x[u] = cmod_small((x[u] - digits[u][j]) * inv, pd, ip);
-      }
-#pragma unroll
-      for (int u = 0; u < E; ++u) digits[u][d] = cmod_small(x[u], pd, ip);
-    }
-  }
+  float digits[E][MAXN];
+  garner<E, NMAX>(M, t, digits);
   double sum[E], comp[E];
 #pragma unroll
   for (int u = 0; u < E; ++u) {
@@ -159,7 +190,7 @@ __device__ __forceinline__ void finalize(const Moduli& M, const int (&t)[E][MAXN
     comp[u] = sum[u];
   }
 #pragma unroll
-  for (int d = 0; d < MAXN; ++d) {
+  for (int d = 0; d < NMAX; ++d) {
     if (d < n) {
 #pragma unroll
       for (int u = 0; u < E; ++u) {

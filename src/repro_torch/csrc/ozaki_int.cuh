@@ -2,11 +2,13 @@
 // shared by the CUDA kernels of repro_torch.
 //
 // Device counterparts of repro/kernels/crt_reconstruct/kernel.py (_centered,
-// _cmod, _combine, _garner, lines 24-49), of the residue splits of
-// repro/core/quantize.py (split_square, split_karatsuba) and of
-// numerics.ldexp_wide. They must give the reference's integers bit for bit:
-// C's % truncates toward zero while jnp.mod and torch.remainder floor, so
-// every reduction goes through floor_mod.
+// _cmod, _combine, lines 24-44; the Garner steps are fused_common.cuh's),
+// of the residue splits of repro/core/quantize.py (split_square,
+// split_karatsuba) and of numerics.ldexp_wide. They must give the
+// reference's integers bit for bit: C's % truncates toward zero while
+// jnp.mod and torch.remainder floor, so every integer reduction goes through
+// floor_mod, and the f32 reductions (mod_near, cmod_exact) give the same
+// centred residues.
 #pragma once
 
 #include <cuda_fp8.h>
@@ -58,13 +60,40 @@ __device__ __forceinline__ uint8_t e4m3(int v) {
       __nv_cvt_float_to_fp8(static_cast<float>(v), __NV_SATFINITE, __NV_E4M3));
 }
 
-// Balanced Garner mixed-radix digit i (radix order) from the centred residue
-// t of radix modulus i and the digits before it; inv_col[j] is the inverse of
-// radix modulus j mod radix modulus i. |values| < 1089^2 < 2^21.
-__device__ __forceinline__ int garner_digit(int t, int pi, const int* digits,
-                                            const int* inv_col, int stride, int i) {
-  for (int j = 0; j < i; ++j) t = cmod((t - digits[j]) * inv_col[j * stride], pi);
-  return cmod(t, pi);
+// -- the same reductions on integer-valued f32, without a division or a
+// conversion instruction (the card converts between int and float several
+// times slower than it issues f32 FMAs) --------------------------------------
+
+// 1.5 * 2^23: for |y| < 2^22, y + RND is rounded to an integer, and for an
+// integer y the bits of y + RND are RND_BITS + y.
+constexpr float RND = 12582912.0f;
+constexpr int RND_BITS = 0x4B400000;
+
+// Integer |x| < 2^22 as float, and back.
+__device__ __forceinline__ float small_to_float(int x) {
+  return __fsub_rn(__int_as_float(RND_BITS + x), RND);
+}
+__device__ __forceinline__ int small_to_int(float x) {
+  return __float_as_int(__fadd_rn(x, RND)) - RND_BITS;
+}
+
+// A representative of x mod p of magnitude <= p/2 + 1, for integer-valued
+// |x| <= 2^24 and 4 <= p < 2^11, ip = RN(1/p). q = rint(x * ip) by the RND
+// rounding (|x * ip| < 2^22), and |x * ip - x / p| <= |x| 2^-24 / p <= 1/p,
+// so |x - q p| <= p/2 + 1; the FMA gives that integer exactly.
+__device__ __forceinline__ float mod_near(float x, float p, float ip) {
+  const float q = __fsub_rn(__fmaf_rn(x, ip, RND), RND);
+  return __fmaf_rn(-q, p, x);
+}
+
+// The centred residue cmod(x, p) (odd p: [-(p-1)/2, (p-1)/2], even p:
+// [-p/2, p/2-1]) of integer-valued |x| < 2^23, half = floor((p-1)/2). Unless
+// x/p is a half-integer its distance to one is >= 1/(2p), more than
+// |x * ip - x/p| <= |x| 2^-24 / p, so q = rint(x / p) and |x - q p| <= p/2;
+// a half-integer (even p only) leaves +-p/2, and +p/2 moves to -p/2.
+__device__ __forceinline__ float cmod_exact(float x, float p, float ip, float half) {
+  const float r = mod_near(x, p, ip);
+  return r > half ? __fsub_rn(r, p) : r;
 }
 
 // floor(e / 2): ldexp_wide's split is a floor division, C's / truncates.

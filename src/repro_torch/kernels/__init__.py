@@ -17,8 +17,9 @@ from .fused import (BLOCK_TABLE, decompose_raw, ozmm_fused_parts, ozmm_fused_par
                     ozmm_pallas_fused, ozmm_pallas_fused_prepared, select_blocks)
 from .int8_gemm import int8_gemm, int8_gemm_plain
 from .pipeline import ozmm_pallas, ozmm_pallas_prepared
-from .quant_residues import (decompose_int, quant_residues, quant_residues_op,
-                             quant_residues_plain, quant_residues_ref)
+from .quant_residues import (decompose_int, quant_residues, quant_residues_f64,
+                             quant_residues_f64_plain, quant_residues_op, quant_residues_plain,
+                             quant_residues_ref)
 
 __all__ = [
     "resolve_reconstruct", "stack_parts", "BLOCK_TABLE", "decompose_raw",
@@ -26,6 +27,7 @@ __all__ = [
     "ozmm_fused_ref", "ozmm_pallas_fused", "ozmm_pallas_fused_prepared", "select_blocks",
     "fp8_gemm", "fp8_gemm_plain", "int8_gemm", "int8_gemm_plain",
     "requant_garner", "requant_garner_plain", "decompose_int", "quant_residues",
-    "quant_residues_op", "quant_residues_plain", "quant_residues_ref",
+    "quant_residues_f64", "quant_residues_f64_plain", "quant_residues_op",
+    "quant_residues_plain", "quant_residues_ref",
     "ozmm_pallas", "ozmm_pallas_prepared",
 ]

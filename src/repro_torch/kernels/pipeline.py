@@ -1,8 +1,9 @@
 """The phase-split emulated GEMM on the kernel route (the torch counterpart
 of ``repro/kernels/pipeline.py``), the ``+pallas+unfused`` executor:
 
-  quant_residues (K6, fused over moduli)  ->  the fp8 (K3) or int8 (K4)
-  GEMM schedule  ->  requant_garner (K5)  ->  the f64 epilogue.
+  quant_residues_f64 (K6, fused over moduli, from the f64 operand)  ->  the
+  fp8 (K3) or int8 (K4) GEMM schedule  ->  requant_garner (K5, on to the
+  f64 C).
 
 Every phase is exact, so the digits, and the f64 result, equal the core
 route's (``core.ozaki2.ozmm_ozaki2``) and the fused kernels' bit for bit.
@@ -13,12 +14,13 @@ these are B's parts transposed, bit for bit), and a fast-mode plan's
 (N, k, n) stacks go through K2's ``transpose_parts`` once per call. Each
 GEMM then reads B^T's plane in place, as the K-major view ``plane.t()``: no
 B is copied in the schedule. Between the phases the residue parts
-(N, m, k) / (N, n, k), the product stacks (N, m, n) and the digit stack
-(N, m, n) live in device memory: 9 GiB of f32 products at 8192^3 and
-N = 12, written in place by the GEMMs, with no pad or stack copy. The
-epilogue, a Kahan sum over the digit planes and ``ldexp_wide``, is the
-reference's XLA epilogue, not a Pallas kernel, so it stays the core
-route's ``crt.reconstruct`` in PyTorch.
+(N, m, k) / (N, n, k) and the product stacks (N, m, n) live in device
+memory: 9 GiB of f32 products at 8192^3 and N = 12, written in place by
+the GEMMs, with no pad or stack copy. The epilogue, a
+Kahan sum over the digits and ``ldexp_wide``, is the reference's XLA
+epilogue (``reconstruct_f64``; the TPU has no f64): here K5 runs it on the
+card, after the digits, so no digit plane is written; on CPU tensors K5's
+plain version is ``crt.reconstruct`` of the plain digits.
 
 ``ozmm_pallas`` takes 2-D operands (``core.gemm`` batches over leading
 dims); ``ozmm_pallas_prepared`` composes with ``core.plan``.
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import crt, scaling
+from repro_torch.core import scaling
 from repro_torch.core.moduli import DEFAULT_NUM_MODULI, ModuliSet, make_moduli_set
 from repro_torch.core.plan import QuantizedMatrix, pair_exponents
 
@@ -73,10 +75,10 @@ def k_major(b: torch.Tensor) -> torch.Tensor:
     return b.t().contiguous()
 
 
-def _gemm_schedule(sa, sbt, ms: ModuliSet) -> torch.Tensor:
-    """The GEMM schedule, then one requant/Garner pass -> digits (N, m, n)
-    int16, radix order."""
-    return requant_garner(residue_gemms(sa, sbt, ms), ms=ms)
+def _gemm_schedule(sa, sbt, ms: ModuliSet, lmu: torch.Tensor, lnu: torch.Tensor
+                   ) -> torch.Tensor:
+    """The GEMM schedule, then one requant/Garner pass on to C (m, n) f64."""
+    return requant_garner(residue_gemms(sa, sbt, ms), ms=ms, lmu=lmu, lnu=lnu)
 
 
 def ozmm_pallas(a: torch.Tensor, b: torch.Tensor, *, family: str = "fp8-hybrid",
@@ -92,7 +94,7 @@ def ozmm_pallas(a: torch.Tensor, b: torch.Tensor, *, family: str = "fp8-hybrid",
     scal = scaling.compute_scaling(a, b, ms, mode)
     sa = quant_residues_op(a, scal.lmu, ms=ms, axis=0)
     sbt = quant_residues_op(k_major(b), scal.lnu, ms=ms, axis=0)  # (N, n, k)
-    return crt.reconstruct(_gemm_schedule(sa, sbt, ms), ms, scal.lmu, scal.lnu)
+    return _gemm_schedule(sa, sbt, ms, scal.lmu, scal.lnu)
 
 
 def ozmm_pallas_prepared(qa: QuantizedMatrix, qb: QuantizedMatrix) -> torch.Tensor:
@@ -111,4 +113,4 @@ def ozmm_pallas_prepared(qa: QuantizedMatrix, qb: QuantizedMatrix) -> torch.Tens
     else:
         sa = quant_residues_op(qa.x, lmu, ms=ms, axis=0)
         sbt = quant_residues_op(k_major(qb.x), lnu, ms=ms, axis=0)
-    return crt.reconstruct(_gemm_schedule(sa, sbt, ms), ms, lmu, lnu)
+    return _gemm_schedule(sa, sbt, ms, lmu, lnu)

@@ -1,16 +1,23 @@
 """The residue quantization pass (K6): wrapper of the hand-written Hopper
 kernel ``csrc/quant_residues.cu``, which replaces
 ``repro/kernels/quant_residues/kernel.py::quant_residues`` (bodies
-``_quant_kernel``/``_quant_kernel_int8``), and its plain PyTorch version.
+``_quant_kernel``/``_quant_kernel_int8``), and its plain PyTorch versions.
 
-From the int32 frame (mh, ml, e) of a scaled integer operand
-(``ref.decompose_int``) and the 2^e-mod-p tables, for every modulus in one
-pass: the centred residue, then the split into (hi, lo, hs) e4m3 stacks
-(N, m, k) (hs zero-filled for square moduli), or one int8 stack.
+For every modulus in one pass: the centred residue of each element of a
+scaled integer operand, then the split into (hi, lo, hs) e4m3 stacks
+(N, m, k) (hs zero-filled for square moduli), or one int8 stack. Two
+entries of the one kernel:
+
+* ``quant_residues`` takes the int32 frame (mh, ml, e)
+  (``ref.decompose_int``, the TPU kernel's input) and the 2^e-mod-p tables;
+* ``quant_residues_f64`` takes the f64 operand and its log2 scales and does
+  the scaling and the frame's split itself (``quantize.scaled_int`` and
+  ``decompose_int`` in registers), so those two PyTorch passes do not run.
 
 A CUDA tensor goes to the kernel or raises; only CPU tensors take the plain
-version ``quant_residues_plain``. ``quant_residues.launches`` counts kernel
-launches and ``quant_residues_plain.calls`` plain-version calls.
+versions ``quant_residues_plain`` / ``quant_residues_f64_plain``.
+``.launches`` counts kernel launches of each entry and ``.calls``
+plain-version calls.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ from repro_torch.core.moduli import POW2_TABLE_LEN, ModuliSet
 
 from ..common import stack_parts
 from ..launch import MODULI_TAIL, bind, check_moduli, check_tensors, moduli_tail, raise_on_error
-from .ref import MANT_SPLIT
+from .ref import MANT_SPLIT, decompose_int
 
 
 def quant_residues_plain(mh, ml, e, tbl, *, ms: ModuliSet):
@@ -45,11 +52,38 @@ def quant_residues_plain(mh, ml, e, tbl, *, ms: ModuliSet):
 quant_residues_plain.calls = 0
 
 
+def quant_residues_f64_plain(a, lscale, tbl, *, ms: ModuliSet, axis: int = 0):
+    """Plain PyTorch version of ``quant_residues_f64``: the scaled integers
+    (``quantize.scaled_int``), their frame (``decompose_int``), then
+    ``quant_residues_plain``."""
+    quant_residues_f64_plain.calls += 1
+    return quant_residues_plain(*decompose_int(quantize.scaled_int(a, lscale, axis)), tbl,
+                                ms=ms)
+
+
+quant_residues_f64_plain.calls = 0
+
+
 @functools.cache
 def _load() -> ctypes.CDLL:
     ptr = ctypes.c_void_p
     return bind("quant_residues.cu", "quant_residues_launch",
-                [ptr] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + MODULI_TAIL)
+                [ptr] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int] + MODULI_TAIL)
+
+
+def _launch(kernel: str, inputs, tbl, shape, axis: int, ms: ModuliSet, dev: torch.device):
+    """One launch of the kernel on the frame (mh, ml, e) or on (a, lscale);
+    returns the part stacks (N, m, k)."""
+    lib = _load()
+    int8 = ms.family == "int8"
+    outs = tuple(torch.empty((ms.n, *shape), dtype=torch.int8 if int8 else numerics.E4M3,
+                             device=dev) for _ in range(1 if int8 else 3))
+    ptrs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
+    err = lib.quant_residues_launch(*inputs, tbl.data_ptr(), *ptrs, shape[0] * shape[1],
+                                    shape[1], axis, ms.n, dev.index, *moduli_tail(ms, dev))
+    raise_on_error(kernel, lib, err)
+    return outs[0] if int8 else outs
 
 
 def quant_residues(mh, ml, e, tbl, *, ms: ModuliSet):
@@ -64,16 +98,35 @@ def quant_residues(mh, ml, e, tbl, *, ms: ModuliSet):
     check_moduli("quant_residues", ms)
     if dev.type == "cpu":
         return quant_residues_plain(mh, ml, e, tbl, ms=ms)
-    lib = _load()
-    int8 = ms.family == "int8"
-    outs = tuple(torch.empty((ms.n, m, k), dtype=torch.int8 if int8 else numerics.E4M3,
-                             device=dev) for _ in range(1 if int8 else 3))
-    ptrs = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
-    err = lib.quant_residues_launch(mh.data_ptr(), ml.data_ptr(), e.data_ptr(), tbl.data_ptr(),
-                                    *ptrs, m * k, ms.n, dev.index, *moduli_tail(ms, dev))
-    raise_on_error("quant_residues", lib, err)
+    out = _launch("quant_residues", [mh.data_ptr(), ml.data_ptr(), e.data_ptr(), None, None],
+                  tbl, (m, k), 0, ms, dev)
     quant_residues.launches += 1
-    return outs[0] if int8 else outs
+    return out
 
 
 quant_residues.launches = 0
+
+
+def quant_residues_f64(a, lscale, tbl, *, ms: ModuliSet, axis: int = 0):
+    """Part stacks (N, m, k) of trunc(2^lscale * a) for the f64 operand ``a``
+    (m, k) and its log2 scales ``lscale`` (int32), per row (``axis=0``, m
+    entries) or per column (``axis=1``, k entries), under the tables
+    ``tbl``. CUDA tensors run the kernel (or raise); CPU tensors run
+    ``quant_residues_f64_plain``."""
+    if axis not in (0, 1):
+        raise ValueError(f"quant_residues_f64: axis must be 0 or 1, got {axis}")
+    m, k = a.shape
+    named = [("a", a, torch.float64, (m, k)),
+             ("lscale", lscale, torch.int32, ((m, k)[axis],)),
+             ("tbl", tbl, torch.int32, (ms.n, POW2_TABLE_LEN))]
+    dev = check_tensors("quant_residues_f64", named)
+    check_moduli("quant_residues_f64", ms)
+    if dev.type == "cpu":
+        return quant_residues_f64_plain(a, lscale, tbl, ms=ms, axis=axis)
+    out = _launch("quant_residues_f64", [None, None, None, a.data_ptr(), lscale.data_ptr()],
+                  tbl, (m, k), axis, ms, dev)
+    quant_residues_f64.launches += 1
+    return out
+
+
+quant_residues_f64.launches = 0

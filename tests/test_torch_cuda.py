@@ -1,8 +1,10 @@
 """The Hopper kernels of repro_torch (K1 ozmm_fused_raw with its residue
 prologue raw_parts, K2 ozmm_fused_parts with its B transpose, the wgmma
 probe of their GEMM core, and the phase-split pipeline's K3 fp8_gemm, K4
-int8_gemm, K5 requant_garner, K6 quant_residues) against their plain
-versions on the card, bitwise. Every test here is marked ``cuda`` and
+int8_gemm, K5 requant_garner in its digits and f64 modes, K6
+quant_residues with its frame and f64 entries) against their plain
+versions on the card, bitwise; and accurate scaling's bound GEMM under the
+global TF32 switch. Every test here is marked ``cuda`` and
 skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -273,10 +275,13 @@ def test_quant_residues_bitwise_vs_plain_on_card(spec):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("spec", ["ozaki2-fp8/fast", "ozaki2-karatsuba/fast", "ozaki2-int8/fast"])
+@pytest.mark.parametrize("spec", ["ozaki2-fp8/fast", "ozaki2-karatsuba/fast", "ozaki2-int8/fast",
+                                  "ozaki2-fp8/fast@20", "ozaki2-int8/fast@17"])
 def test_requant_garner_bitwise_vs_plain_on_card(spec):
     """K5 on random product stacks of the largest magnitudes the schedule
-    makes (|c| < 2^24 for fp8, < 2^30 for int8), against its plain version."""
+    makes (|c| < 2^24 for fp8, < 2^30 for int8) at an odd 97 x 131, in its
+    digits mode and its f64 mode (scale exponents whose sums pass +-1023),
+    against its plain version; N > 14 takes the kernel built for 20 moduli."""
     from repro_torch.kernels import requant_garner, requant_garner_plain
 
     _need_card()
@@ -289,10 +294,14 @@ def test_requant_garner_bitwise_vs_plain_on_card(spec):
     else:
         cparts = tuple(torch.tensor(rng.integers(-2 ** 24, 2 ** 24, shape),
                                     dtype=torch.float32, device="cuda") for _ in range(3))
+    lmu = torch.tensor(rng.integers(-700, 700, 97), dtype=torch.int32, device="cuda")
+    lnu = torch.tensor(rng.integers(-700, 700, 131), dtype=torch.int32, device="cuda")
     launches = requant_garner.launches
     got = requant_garner(cparts, ms=ms)
-    assert requant_garner.launches == launches + 1
+    c = requant_garner(cparts, ms=ms, lmu=lmu, lnu=lnu)
+    assert requant_garner.launches == launches + 2
     assert torch.equal(got, requant_garner_plain(cparts, ms=ms))
+    assert torch.equal(c, requant_garner_plain(cparts, ms=ms, lmu=lmu, lnu=lnu))
 
 
 @pytest.mark.cuda
@@ -300,8 +309,8 @@ def test_requant_garner_bitwise_vs_plain_on_card(spec):
                                   "ozaki2-karatsuba/fast", "ozaki2-int8/accurate"])
 def test_unfused_route_on_card(spec):
     """'+pallas+unfused' on the card, raw and prepared, equals '+core' and
-    the fused '+pallas' bit for bit, with K6 2, K3 3N (K4 N) and K5 1
-    launches a call."""
+    the fused '+pallas' bit for bit, with K6 (its f64 entry) 2, K3 3N (K4 N)
+    and K5 1 launches a call."""
     from repro_torch import prepare_operand
     from repro_torch import kernels as kn
 
@@ -314,7 +323,7 @@ def test_unfused_route_on_card(spec):
     per_call = ms.n if ms.family == "int8" else 3 * ms.n
 
     def counts():
-        return kn.quant_residues.launches, gemm.launches, kn.requant_garner.launches
+        return kn.quant_residues_f64.launches, gemm.launches, kn.requant_garner.launches
 
     before = counts()
     got = ozmm(a, b, spec + "+pallas+unfused")
@@ -426,3 +435,124 @@ def test_unfused_route_k_major_on_card(spec):
         assert torch.equal(ozmm(qa, qb, spec + "+pallas+unfused"), ozmm(qa, qb, spec + "+core"))
         assert gemm.launches_by_route[route] == before + 2 * per_call
         assert gemm.b_copies == copies
+
+
+def _operands(rng, m, k, n, phi=1.0):
+    return (torch.from_numpy(_lognormal(rng, (m, k), phi)).cuda(),
+            torch.from_numpy(_lognormal(rng, (k, n), phi)).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 128, 64), (1000, 997, 1003), (128, 128, 1),
+                                   (101, 67, 33)],
+                         ids=["128x128x64", "ragged", "hpl-fold", "odd"])
+@pytest.mark.parametrize("spec", ["ozaki2-fp8/fast", "ozaki2-karatsuba/accurate",
+                                  "ozaki2-int8/fast"])
+def test_f64_entries_vs_plain_on_card(spec, shape):
+    """K6's f64 entry (A by rows, B^T by rows and B by columns) and K5 in
+    both modes (on the pipeline's own products) against their plain
+    versions at m x k x n = 128x128x64, a ragged shape, HPL's one-column
+    fold and odd sizes (the kernels' scalar paths), one launch each; K5's
+    f64 mode equals crt.reconstruct of its digits."""
+    from repro_torch import kernels as kn
+    from repro_torch.core import crt
+    from repro_torch.core.plan import pow2_tables
+    from repro_torch.kernels import pipeline
+
+    _need_card()
+    m, k, n = shape
+    rng = np.random.default_rng(18)
+    pol = parse_policy(spec)
+    ms = pol.moduli_set()
+    a, b = _operands(rng, m, k, n)
+    scal = compute_scaling(a, b, ms, pol.mode)
+    tables = pow2_tables(ms, a.device)
+    sides = []
+    for x, lscale, axis in ((a, scal.lmu, 0), (pipeline.k_major(b), scal.lnu, 0),
+                            (b, scal.lnu, 1)):
+        launches = kn.quant_residues_f64.launches
+        got = kn.quant_residues_f64(x, lscale, tables, ms=ms, axis=axis)
+        assert kn.quant_residues_f64.launches == launches + 1
+        want = kn.quant_residues_f64_plain(x, lscale, tables, ms=ms, axis=axis)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+        sides.append(got)
+    cparts = pipeline.residue_gemms(sides[0], sides[1], ms)
+    launches = kn.requant_garner.launches
+    digits = kn.requant_garner(cparts, ms=ms)
+    c = kn.requant_garner(cparts, ms=ms, lmu=scal.lmu, lnu=scal.lnu)
+    assert kn.requant_garner.launches == launches + 2
+    assert torch.equal(digits, kn.requant_garner_plain(cparts, ms=ms))
+    assert torch.equal(c, kn.requant_garner_plain(cparts, ms=ms, lmu=scal.lmu, lnu=scal.lnu))
+    assert torch.equal(c, crt.reconstruct(digits, ms, scal.lmu, scal.lnu))
+    assert torch.equal(c, ozmm(a, b, spec + "+core"))
+
+
+def _edge_matrix(rng, k):
+    """Rows of zeros, signed lognormal values, subnormals, values near 1e-300
+    and 1e300, signed integers near 2^53, powers of two and the largest
+    finite values, with per-row log2 scales that include 1074 and 1100
+    (past ldexp_wide's single-factor range) and large negative ones."""
+    a = _lognormal(rng, (12, k), 2.0)
+    a[0] = 0.0
+    a[1, : k // 2] *= -1.0
+    a[2] = rng.choice([5e-324, -5e-324, 1e-310, -2.2250738585072014e-308, 0.0, -0.0], k)
+    a[3] *= 1e-300
+    a[4] *= 1e300
+    a[5] = rng.integers(-2 ** 53, 2 ** 53, k).astype(np.float64)
+    a[6] = np.ldexp(np.where(np.arange(k) % 2 == 0, 1.0, -1.0), rng.integers(0, 60, k))
+    a[7] = (2.0 ** 53 - 1) * np.where(np.arange(k) % 2 == 0, 1.0, -1.0)
+    a[8] = np.finfo(np.float64).max * (rng.random(k) - 0.5)
+    a[9] = rng.choice([1e-320, -3e-315, 4.9e-324], k)
+    a[10] *= 1e-305
+    lscale = np.array([5, 40, 1074, 1000, -900, 0, 0, 1, -1020, 1100, 1050, 60],
+                      dtype=np.int32)
+    return torch.from_numpy(a).cuda(), torch.from_numpy(lscale).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [301, 304], ids=["odd-k", "k%4==0"])
+@pytest.mark.parametrize("spec", ["ozaki2-fp8/fast", "ozaki2-karatsuba/fast",
+                                  "ozaki2-int8/fast", "ozaki2-fp8/fast@20"])
+def test_quant_residues_f64_edge_inputs_on_card(spec, k):
+    """K6's f64 entry (and its frame entry on the same scaled operand) on the
+    edge matrix, bit for bit against the plain versions, on the scalar
+    (odd k) and the vector path."""
+    from repro_torch import kernels as kn
+    from repro_torch.core.plan import pow2_tables
+    from repro_torch.core.quantize import scaled_int
+
+    _need_card()
+    ms = parse_policy(spec).moduli_set()
+    a, lscale = _edge_matrix(np.random.default_rng(19), k)
+    tables = pow2_tables(ms, a.device)
+    want = kn.quant_residues_f64_plain(a, lscale, tables, ms=ms)
+    got = kn.quant_residues_f64(a, lscale, tables, ms=ms)
+    frame = kn.quant_residues(*kn.decompose_int(scaled_int(a, lscale, 0)), tables, ms=ms)
+    for g, f, w in zip(*((x,) if ms.family == "int8" else x for x in (got, frame, want))):
+        assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+        assert torch.equal(f.view(torch.uint8), w.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_accurate_scaling_ignores_the_tf32_switch_on_card():
+    """Accurate scaling's exponents at 1024^3 are the same with the global
+    TF32 switch on and off (the bound GEMM pins f32 itself), and the
+    caller's setting survives the call."""
+    _need_card()
+    rng = np.random.default_rng(20)
+    a, b = _operands(rng, 1024, 1024, 1024, 0.5)
+    ms = parse_policy("ozaki2-fp8/accurate").moduli_set()
+    switch = torch.backends.cuda.matmul
+    prev = switch.allow_tf32
+    try:
+        got = {}
+        for on in (False, True):
+            switch.allow_tf32 = on
+            got[on] = compute_scaling(a, b, ms, "accurate")
+            assert switch.allow_tf32 == on
+    finally:
+        switch.allow_tf32 = prev
+    assert torch.equal(got[True].lmu, got[False].lmu)
+    assert torch.equal(got[True].lnu, got[False].lnu)
