@@ -85,6 +85,35 @@ script exits non-zero without printing a result:
    route, and one ozmm call split into scaling, B's f64 transpose, K6, the
    K3/K4 total and K5, with the PyTorch passes the card's route no longer
    runs (scaled_int, decompose_int, crt.reconstruct) required at 0 calls.
+9. autograd, Ozaki-I, the perf model and obs. (ozmm(A, B, spec) * G).sum()
+   .backward() at the main-path size (G from the seed) for ozaki2-fp8
+   accurate and fast and ozaki2-int8 fast on backend auto (K1: 3 launches,
+   6 of its prologue) and ozaki2-fp8/accurate+unfused and
+   ozaki2-int8/fast+unfused (auto's phase-split route: K6 6, K3 9N or K4
+   3N, K5 3), K2, its transpose and K6's frame entry predicted at 0, launch
+   counts zeroed just before and read just after each, no B copied by a
+   GEMM wrapper; A.grad and B.grad bitwise equal to ozmm(G, B^T, "+core")
+   and ozmm(A^T, G, "+core"), normwise error vs cuBLAS DGEMM <= 2^-44;
+   forward and forward+backward timed (median of 5 after a warm-up), with
+   the glue's f64 copies of the transposed operands (row_major, k_major:
+   the copies made, and the time of their calls) counted. The plan-reusing
+   '+core' VJP at 1024^3 in both modes (same gate; whether it equals the
+   unprepared products bitwise is reported), an explicit '+pallas'
+   gradient raising the reference's message, and a batched (3, 2048,
+   2048) gradient (9 K1 launches, same gate). Ozaki-I accurate@11 and
+   fast@11 at the main-path size: normwise error <= 2^-44 / 2^-40, a rerun
+   bitwise, the time (median of 3) beside the fp8 accurate forwards (its
+   products run as f32 GEMMs on the core executor, not on the FP8 tensor
+   cores). The Table-II model's prediction on H100_SXM_SHEET for the four
+   policies beside 2mnk / t of phases 5 and 8 (printed, not a gate). Obs:
+   one fp8 accurate forward+backward at 2048^3 counts gemm.calls 1 and
+   gemm.mma_ops 2mnk x the Table-II product count; a fenced span around
+   one main-path call within 0.8-1.5x of its CUDA-event time and an
+   unfenced one at most 0.75 of the fenced one; their Chrome trace
+   validates; health.bound_gemm_probe on numpy operands at 2048^3 runs its
+   bound GEMM on the card by default, bounds log2 max|A @ B| and agrees
+   with its device="cpu" result within log2(1 + k 2^-24), the bound's own
+   allowance for the f32 summation order.
 
 The last two lines are the card (nvidia-smi name, power limit) and
 {"ok": true, "device": {...}}; before them a {"kernels": [...]} line.
@@ -93,6 +122,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -769,7 +799,285 @@ def unfused_phase(args, dev, gen) -> list[dict]:
     del a, b
     torch.cuda.empty_cache()
     print(json.dumps({"unfused_kernels": detail, "unfused_split": split}))
-    return [{k: v for k, v in r.items() if k not in ("tag",)} for r in rows]
+    return [{k: v for k, v in r.items() if k not in ("tag",)} for r in rows], split
+
+
+def normwise(x, ref) -> float:
+    """||x - ref||_F / ||ref||_F."""
+    import torch
+
+    return (torch.linalg.norm(x - ref) / torch.linalg.norm(ref)).item()
+
+
+def autograd_phase(args, dev, gen, fused_rows, unfused_split) -> dict:
+    """Phase 9 (module docstring): gradients through ozmm on the kernel
+    route and through the '+core' VJP, Ozaki-I, the perf model's predictions
+    beside the measured rates, and the obs layer on the card."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels as kn
+    from repro_torch import obs, ozmm
+    from repro_torch.core import perf_model
+    from repro_torch.core.moduli import DEFAULT_NUM_MODULI
+    from repro_torch.core.ozaki1 import num_matmuls
+    from repro_torch.core import numerics
+    from repro_torch.kernels import common, pipeline
+    from repro_torch.kernels.fp8_gemm import reset_counts
+    from repro_torch.kernels.fused import (ops, ozmm_fused_parts, ozmm_fused_raw, raw_parts,
+                                           transpose_parts)
+    from repro_torch.obs import health
+    from repro_torch.obs.export import validate_chrome_trace
+    from repro_torch.precision import parse_policy
+
+    big = args.size
+    n1, nb, n2 = min(1024, big), min(2048, big), min(2048, big)  # the +core VJP, batch, obs
+    mnk = big ** 3
+    kernels = {"K1": ozmm_fused_raw, "K1-prologue": raw_parts, "K2": ozmm_fused_parts,
+               "K2-transpose": transpose_parts, "K6": kn.quant_residues_f64,
+               "K6-frame": kn.quant_residues, "K3": kn.fp8_gemm, "K4": kn.int8_gemm,
+               "K5": kn.requant_garner}
+    glue = {"row_major": common.row_major, "k_major": common.k_major}
+
+    def zero_counts():
+        for f in kernels.values():
+            f.launches = 0
+        for f in glue.values():
+            f.copies = 0
+        for g in (kn.fp8_gemm, kn.int8_gemm):
+            reset_counts(g)
+
+    def read_counts():
+        return {tag: f.launches for tag, f in kernels.items()}
+
+    def predicted(spec):
+        """Launches of one forward + backward (3 unprepared emulated GEMMs)."""
+        ms = parse_policy(spec).moduli_set()
+        want = dict.fromkeys(kernels, 0)
+        if not spec.endswith("+unfused"):
+            want.update({"K1": 3, "K1-prologue": 6})
+        elif ms.family == "int8":
+            want.update({"K6": 6, "K4": 3 * ms.n, "K5": 3})
+        else:
+            want.update({"K6": 6, "K3": 9 * ms.n, "K5": 3})
+        return want
+
+    def loss_backward(a, b, g, spec):
+        ta, tb = a.detach().requires_grad_(), b.detach().requires_grad_()
+        (ozmm(ta, tb, spec) * g).sum().backward()
+        return ta.grad, tb.grad
+
+    out = {"grad": [], "core_vjp": [], "ozaki1": [], "perf_model": []}
+    a, b = lognormal(gen, (big, big), 0.5, dev), lognormal(gen, (big, big), 0.5, dev)
+    g = torch.randn((big, big), generator=gen, device=dev, dtype=torch.float64)
+    ref_ga, ref_gb = g @ b.T, a.T @ g  # cuBLAS DGEMM, a yardstick the port never calls
+
+    # -- autograd on the kernel route at the main-path size -------------------
+    for spec in ("ozaki2-fp8/accurate", "ozaki2-fp8/fast", "ozaki2-int8/fast",
+                 "ozaki2-fp8/accurate+unfused", "ozaki2-int8/fast+unfused"):
+        core = spec.removesuffix("+unfused") + "+core"
+        zero_counts()
+        with CallTotals(pipeline, "k_major") as t_bt, CallTotals(pipeline, "row_major") as t_ra, \
+                CallTotals(ops, "row_major") as t_rf:
+            ga, gb = loss_backward(a, b, g, spec)
+            torch.cuda.synchronize()
+        moved, want = read_counts(), predicted(spec)
+        copies = (kn.fp8_gemm.b_copies, kn.int8_gemm.b_copies)
+        made = {tag: f.copies for tag, f in glue.items()}
+        copies_ms = (t_bt.seconds() + t_ra.seconds() + t_rf.seconds()) * 1e3
+        print(f"  grad {spec:28s} {big}^3: launches {moved}, predicted {want}; GEMM-wrapper B "
+              f"copies {copies}; glue f64 copies made {made} in "
+              f"{len(t_bt.spans) + len(t_ra.spans) + len(t_rf.spans)} calls of k_major and "
+              f"row_major ({copies_ms:.2f} ms)", flush=True)
+        check(moved == want, f"grad {spec}: launches {moved}, predicted {want}")
+        check(copies == (0, 0), f"grad {spec}: a GEMM wrapper copied B")
+        check_equal(ga, ozmm(g, b.T, core), f"grad {spec} {big}^3: A.grad vs ozmm(G, B^T, +core)")
+        check_equal(gb, ozmm(a.T, g, core), f"grad {spec} {big}^3: B.grad vs ozmm(A^T, G, +core)")
+        err_a, err_b = normwise(ga, ref_ga), normwise(gb, ref_gb)
+        check(max(err_a, err_b) <= 2.0 ** -44,
+              f"grad {spec}: normwise error vs cuBLAS DGEMM ({err_a}, {err_b}) > 2^-44")
+        del ga, gb
+        torch.cuda.empty_cache()
+        fwd = cuda_ms(lambda: ozmm(a, b, spec))
+        fwd_bwd = cuda_ms(lambda: loss_backward(a, b, g, spec))
+        torch.cuda.empty_cache()
+        out["grad"].append({"policy": spec, "shape": [big, big, big], "launches": moved,
+                            "err_a": err_a, "err_b": err_b, "forward_ms": fwd,
+                            "forward_backward_ms": fwd_bwd, "glue_copies": made,
+                            "k_major_calls": len(t_bt.spans),
+                            "row_major_calls": len(t_ra.spans) + len(t_rf.spans),
+                            "copies_ms": copies_ms})
+        print(f"  grad {spec:28s} == +core cotangent GEMMs (bitwise); normwise error vs cuBLAS "
+              f"DGEMM dA {err_a:.3e}, dB {err_b:.3e} (gate 2^-44); forward {fwd:.2f} ms, "
+              f"forward+backward {fwd_bwd:.2f} ms ({fwd_bwd / fwd:.2f}x)", flush=True)
+    del ref_ga, ref_gb
+
+    # -- the plan-reusing '+core' VJP, the '+pallas' refusal, a batch ---------
+    a1, b1 = lognormal(gen, (n1, n1), 0.5, dev), lognormal(gen, (n1, n1), 0.5, dev)
+    g1 = torch.randn((n1, n1), generator=gen, device=dev, dtype=torch.float64)
+    for mode in ("fast", "accurate"):
+        spec = f"ozaki2-fp8/{mode}+core"
+        zero_counts()
+        ga, gb = loss_backward(a1, b1, g1, spec)
+        check(sum(read_counts().values()) == 0, f"grad {spec} launched a kernel")
+        err = max(normwise(ga, g1 @ b1.T), normwise(gb, a1.T @ g1))
+        check(err <= 2.0 ** -44, f"grad {spec} {n1}^3: normwise error {err} > 2^-44")
+        same = (torch.equal(ga, ozmm(g1, b1.T, spec)), torch.equal(gb, ozmm(a1.T, g1, spec)))
+        out["core_vjp"].append({"policy": spec, "n": n1, "err": err,
+                                "equals_unprepared": same})
+        print(f"  grad {spec} {n1}^3 (the plan-reusing VJP): normwise error {err:.3e} (gate "
+              f"2^-44); (dA, dB) bitwise equal to the unprepared products: {same}", flush=True)
+    ta = a1.detach().requires_grad_()
+    try:
+        ozmm(ta, b1, "ozaki2-fp8/accurate+pallas").sum().backward()
+        raise SmokeFailure("an explicit '+pallas' gradient did not raise")
+    except NotImplementedError as exc:
+        check("backend='pallas' is forward-only — ozmm_pallas_fused has no VJP "
+              "(serving/inference)" in str(exc), f"'+pallas' gradient raised {exc}")
+        print(f"  grad ozaki2-fp8/accurate+pallas: raises NotImplementedError: {exc}", flush=True)
+    a3, b3 = (lognormal(gen, (3, nb, nb), 0.5, dev) for _ in range(2))
+    g3 = torch.randn((3, nb, nb), generator=gen, device=dev, dtype=torch.float64)
+    zero_counts()
+    ga, gb = loss_backward(a3, b3, g3, "ozaki2-fp8/accurate")
+    torch.cuda.synchronize()
+    batch_k1 = ozmm_fused_raw.launches
+    check(batch_k1 == 9, f"batched grad: {batch_k1} K1 launches, predicted 9")
+    err = max(normwise(ga, g3 @ b3.transpose(1, 2)), normwise(gb, a3.transpose(1, 2) @ g3))
+    check(err <= 2.0 ** -44, f"batched grad (3, {nb}, {nb}): normwise error {err} > 2^-44")
+    out["batched"] = {"shape": [3, nb, nb], "k1_launches": batch_k1, "err": err}
+    print(f"  grad ozaki2-fp8/accurate batched (3, {nb}, {nb}): {batch_k1} K1 launches, "
+          f"normwise error {err:.3e} (gate 2^-44)", flush=True)
+    del a1, b1, g1, a3, b3, g3, ga, gb, ta
+    torch.cuda.empty_cache()
+
+    # -- Ozaki-I at the main-path size ------------------------------------------
+    dgemm = a @ b
+    fwd = {r["policy"]: r["forward_ms"] for r in out["grad"]}
+    for mode, gate in (("accurate", 2.0 ** -44), ("fast", 2.0 ** -40)):
+        spec = f"ozaki1-fp8/{mode}@11"
+        c = ozmm(a, b, spec)
+        check(c.shape == (big, big) and bool(torch.isfinite(c).all()), f"{spec}: not finite")
+        err = normwise(c, dgemm)
+        check(err <= gate, f"{spec}: normwise error {err} > {gate}")
+        check_equal(c, ozmm(a, b, spec), f"{spec}: a rerun changed bits")
+        del c
+        t = cuda_ms(lambda: ozmm(a, b, spec), 3)
+        products = num_matmuls(11, mode)
+        out["ozaki1"].append({"policy": spec, "shape": [big, big, big], "ms": t, "err": err,
+                              "products": products})
+        print(f"  {spec} {big}^3: {t:.1f} ms, {products} slice products, normwise error "
+              f"{err:.3e} (gate {gate:.3e}), rerun bitwise; beside ozaki2-fp8/accurate fused "
+              f"{fwd['ozaki2-fp8/accurate']:.2f} ms and +unfused "
+              f"{fwd['ozaki2-fp8/accurate+unfused']:.2f} ms. Ozaki-I's products run as f32 "
+              "GEMMs on the core executor, not on the FP8 tensor cores: this is not the "
+              "paper's FP8-Ozaki-I speed", flush=True)
+    del dgemm
+    torch.cuda.empty_cache()
+
+    # -- the Table-II perf model beside the measured rates ----------------------
+    fused_ms = {r["policy"]: r["ozmm_ms"] for r in fused_rows}
+    unfused_ms = {r["policy"].removesuffix(UNFUSED): r["ozmm_ms"] for r in unfused_split}
+    for spec in POLICIES:
+        pol = parse_policy(spec)
+        num = DEFAULT_NUM_MODULI[pol.family]
+        try:
+            pred = perf_model.predict(pol.scheme, pol.mode, big, big, big, num,
+                                      perf_model.H100_SXM_SHEET)
+        except ValueError:  # Table II models the int8 and fp8-hybrid families only
+            pred = None
+        row = {"policy": spec, "num_moduli": num, "predicted_tflops": pred,
+               "fused_tflops": 2 * mnk / fused_ms[spec] / 1e9,
+               "unfused_tflops": (2 * mnk / unfused_ms[spec] / 1e9 if spec in unfused_ms
+                                  else None)}
+        out["perf_model"].append(row)
+        unf = f"{row['unfused_tflops']:.2f}" if row["unfused_tflops"] else "not timed"
+        prd = f"{pred:.2f}" if pred is not None else "not modeled (Table II: int8, fp8-hybrid)"
+        print(f"  perf model {spec:22s} N={num} {big}^3 on H100_SXM_SHEET: predicted {prd} "
+              f"TFLOP/s; measured fused {row['fused_tflops']:.2f}, +unfused {unf} TFLOP/s "
+              "(2mnk / t, phases 5 and 8)", flush=True)
+
+    # -- obs on the card --------------------------------------------------------
+    spec = "ozaki2-fp8/accurate"
+    a2, b2 = lognormal(gen, (n2, n2), 0.5, dev), lognormal(gen, (n2, n2), 0.5, dev)
+    obs.enable_metrics()
+    obs.reset_metrics()
+    try:
+        loss_backward(a2, b2, torch.ones_like(a2), spec)
+        reg = obs.global_registry()
+        calls, mma = reg.counter_total("gemm.calls"), reg.counter_total("gemm.mma_ops")
+    finally:
+        obs.disable_metrics()
+        obs.reset_metrics()
+    ms = parse_policy(spec).moduli_set()
+    want_mma = 2.0 * n2 ** 3 * ms.num_lowprec_matmuls_accurate
+    check(calls == 1.0, f"obs: gemm.calls {calls} for one forward+backward, predicted 1")
+    check(mma == want_mma, f"obs: gemm.mma_ops {mma}, predicted {want_mma}")
+    print(f"  obs {spec} {n2}^3 forward+backward: gemm.calls {calls:.0f}, gemm.mma_ops "
+          f"{mma:.6e} = 2mnk x {ms.num_lowprec_matmuls_accurate} (Table II)", flush=True)
+    a2_np, b2_np = a2.cpu().numpy(), b2.cpu().numpy()
+    product, seen = numerics.matmul_exact_fp8, []
+
+    def record(x, y):
+        seen.append(x.device.type)
+        return product(x, y)
+
+    numerics.matmul_exact_fp8 = record
+    try:
+        t0 = time.perf_counter()
+        probe = health.bound_gemm_probe(a2_np, b2_np)
+        probe_s = time.perf_counter() - t0
+        probe_cpu = health.bound_gemm_probe(a2_np, b2_np, device="cpu")
+    finally:
+        numerics.matmul_exact_fp8 = product
+    # the bound GEMM's f32 sums of e4m3 products are inexact at k = 2048 and
+    # cuBLAS and the CPU sum in different orders; the bound's inflation
+    # (1 + k 2^-24) is its allowance for that, so both must bound the true
+    # product and agree within it
+    top = math.log2((a2 @ b2).abs().max().item())  # cuBLAS DGEMM, a yardstick
+    allow = math.log2(1.0 + n2 * 2.0 ** -24)
+    check(seen == ["cuda", "cpu"], f"obs: the probe's bound GEMMs ran on {seen}")
+    check(min(probe, probe_cpu) >= top,
+          f"obs: bound_gemm_probe ({probe}, {probe_cpu}) below log2 max|A @ B| {top}")
+    check(abs(probe - probe_cpu) <= allow,
+          f"obs: bound_gemm_probe {probe} on the card, {probe_cpu} on the CPU, "
+          f"apart by more than log2(1 + k 2^-24) = {allow}")
+    print(f"  obs bound_gemm_probe {n2}^3 (numpy operands): its bound GEMM on the card by "
+          f"default ({probe_s * 1e3:.1f} ms host clock, copies in); log2 bound {probe!r}, "
+          f"device='cpu' {probe_cpu!r} (apart {abs(probe - probe_cpu):.3e}, allowance "
+          f"{allow:.3e}); log2 max|A @ B| {top!r}", flush=True)
+    obs.enable_tracing()
+    obs.clear_trace()
+    try:
+        ozmm(a, b, spec)  # warm-up
+        event_ms = cuda_ms(lambda: ozmm(a, b, spec), 3)
+        torch.cuda.synchronize()
+        with obs.span("ozmm.fenced", policy=spec) as fenced:
+            fenced.fence(ozmm(a, b, spec))
+        with obs.span("ozmm.unfenced", policy=spec) as unfenced:
+            ozmm(a, b, spec)
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "trace.json")
+            obs.write_chrome_trace(path)
+            n_events = len(validate_chrome_trace(path)["traceEvents"])
+    finally:
+        obs.disable_tracing()
+        obs.clear_trace()
+    ratio, short = fenced.elapsed * 1e3 / event_ms, unfenced.elapsed / fenced.elapsed
+    out["obs"] = {"gemm_calls": calls, "mma_ops": mma, "probe_log2": probe,
+                  "probe_cpu_log2": probe_cpu, "event_ms": event_ms,
+                  "fenced_ms": fenced.elapsed * 1e3, "unfenced_ms": unfenced.elapsed * 1e3,
+                  "trace_events": n_events}
+    print(f"  obs span {spec} {big}^3: fenced {fenced.elapsed * 1e3:.2f} ms, CUDA events "
+          f"{event_ms:.2f} ms ({ratio:.3f}x); unfenced {unfenced.elapsed * 1e3:.2f} ms "
+          f"({short:.3f} of fenced); Chrome trace of {n_events} events validates", flush=True)
+    check(0.8 <= ratio <= 1.5, f"obs: fenced span {ratio:.3f}x the CUDA-event time")
+    check(short <= 0.75, f"obs: the unfenced span reads {short:.3f} of the fenced one")
+    del a, b, g, a2, b2
+    torch.cuda.empty_cache()
+    print(json.dumps({"autograd_phase": out}))
+    return out
 
 
 def main() -> int:
@@ -1198,8 +1506,12 @@ def main() -> int:
     print(json.dumps({"hpl": hpl_rows}))
 
     # ---- 8. the phase-split +pallas+unfused pipeline ------------------------
-    unfused_rows = unfused_phase(args, dev, gen)
+    unfused_rows, unfused_split = unfused_phase(args, dev, gen)
     t0 = phase("8 unfused pipeline", t0)
+
+    # ---- 9. autograd, Ozaki-I, the perf model, obs -------------------------
+    autograd_phase(args, dev, gen, rows, unfused_split)
+    t0 = phase("9 autograd/ozaki1/perf-model/obs", t0)
     print(f"total {time.perf_counter() - t_start:.1f} s; DEFAULT_NUM_MODULI "
           f"{DEFAULT_NUM_MODULI}", flush=True)
 

@@ -1,6 +1,6 @@
 """Public emulated-GEMM API of the port (the torch counterpart of
-``repro/core/gemm.py``): ``ozmm``, ``backend_matmul``, ``prepare_operand``
-and the executor choice ``_resolve_backend``.
+``repro/core/gemm.py``): ``ozmm``, ``backend_matmul``, ``prepare_operand``,
+``default_num_moduli`` and the executor choice ``_resolve_backend``.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"`` and raises when no CUDA device exists; it
@@ -12,10 +12,22 @@ kernels by default (``ozmm_pallas_fused``, ``ozmm_pallas_fused_prepared``),
 the phase-split pipeline under ``+unfused`` (``ozmm_pallas``,
 ``ozmm_pallas_prepared``); the Hopper kernels on CUDA tensors, their plain
 versions on CPU tensors. ``backend="auto"`` takes the kernel route on a
-compute-capability-9.0 card and core elsewhere.
+compute-capability-9.0 card and core elsewhere. Ozaki-I (``ozaki1-fp8``)
+runs on the core executor, as in the reference.
 
-Not ported yet: the custom VJP (a gradient through an emulated ``ozmm``
-raises ``NotImplementedError``) and the Ozaki-I scheme.
+Gradients: naive autodiff would differentiate trunc/mod (zero a.e.); the
+true derivative of an exact-product emulation is the matmul derivative, and
+the cotangent products dA = dC @ B^T, dB = A^T @ dC are themselves emulated
+DGEMMs. On the core route the backward reuses the forward plans
+(``_PlannedVJP``, the reference's ``_ozmm_fwd``/``_ozmm_bwd``); on the
+kernel route (``_UnpreparedVJP``, the reference's ``_ozmm_pallas_guarded``)
+an explicit ``+pallas`` is forward-only and raises, while the auto-derived
+route runs the two cotangent products as unprepared emulated GEMMs through
+the executor the forward resolved to (on the H100 the kernels; the
+reference runs them on its core path, and both routes give the same bits).
+Ozaki-I differentiates the same way, on core. The emulated-GEMM counters
+(``repro_torch.obs.metrics``) count one call per ``ozmm``; the backward
+records nothing, as in the reference.
 """
 from __future__ import annotations
 
@@ -23,11 +35,16 @@ import functools
 
 import torch
 
+from repro_torch.obs.metrics import metrics_enabled, record_gemm_call
 from repro_torch.precision.context import resolve_policy
-from repro_torch.precision.policy import OZAKI2_FAMILY, PrecisionPolicy
+from repro_torch.precision.policy import (DEFAULT_NUM_SLICES, OZAKI2_FAMILY, SCHEMES,
+                                          PrecisionPolicy)
 
+from .moduli import DEFAULT_NUM_MODULI, ModuliSet
+from .ozaki1 import ozmm_ozaki1_fp8
 from .ozaki2 import ozmm_ozaki2
-from .plan import QuantizedMatrix, ozmm_prepared, quantize_matrix
+from .plan import (QuantizedMatrix, operand_stats, ozmm_prepared, quantize_matrix,
+                   transpose_plan)
 
 #: ``ozmm``'s own fallback when neither a per-call policy nor a context is
 #: set: the paper's flagship operating point.
@@ -65,9 +82,9 @@ def _executor(pol: PrecisionPolicy, dev: torch.device):
     """The 2-D function that runs ``pol`` on ``dev``, and its route name."""
     if pol.scheme == "native":
         return torch.matmul, "native"
-    if pol.scheme not in OZAKI2_FAMILY:
-        raise NotImplementedError(f"scheme {pol.scheme!r} is not ported yet "
-                                  "(ROADMAP, Ozaki-I slice)")
+    if pol.scheme == "ozaki1-fp8":
+        return functools.partial(ozmm_ozaki1_fp8, num_slices=pol.num_slices,
+                                 mode=pol.mode), "core"
     kw = dict(family=OZAKI2_FAMILY[pol.scheme], num_moduli=pol.num_moduli,
               mode=pol.mode)
     if _resolve_backend(pol, dev) == "core":
@@ -97,30 +114,80 @@ def _batched(fn, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(*a.shape[:-2], *out.shape[-2:])
 
 
-class _NoVJP(torch.autograd.Function):
-    """Runs an emulated GEMM forward; asking for its gradient raises instead
-    of returning the zero-a.e. gradient of trunc/mod."""
+#: Reverse of OZAKI2_FAMILY, for labeling prepared-plan executions.
+_FAMILY_SCHEME = {fam: sch for sch, fam in OZAKI2_FAMILY.items()}
+
+
+def _record_emulated(scheme: str, mode: str, family: str,
+                     num_moduli: int | None, a_shape, b_shape) -> None:
+    """Gated GEMM-call metric for one host-level emulated-GEMM entry.
+    Leading batch dims fold into m. No-op unless obs metrics are enabled."""
+    if not metrics_enabled():
+        return
+    m = 1
+    for d in a_shape[:-1]:
+        m *= int(d)
+    record_gemm_call(scheme, mode, family,
+                     num_moduli or DEFAULT_NUM_MODULI[family],
+                     m, int(a_shape[-1]), int(b_shape[-1]))
+
+
+class _PlannedVJP(torch.autograd.Function):
+    """Core-route Ozaki-II GEMM whose backward reuses the forward plans: the
+    cotangent is sketched once and quantized in both roles, and the
+    transposed forward plans (``transpose_plan``) reuse the operands'
+    row/col sketches (the reference's ``_ozmm_fwd``/``_ozmm_bwd``)."""
 
     @staticmethod
-    def forward(ctx, a, b, fn, message):
-        ctx.message = message
-        return _batched(fn, a, b)
+    def forward(ctx, a, b, ms: ModuliSet, mode: str):
+        qa = quantize_matrix(a, "lhs", ms, mode=mode)
+        qb = quantize_matrix(b, "rhs", ms, mode=mode)
+        ctx.plans = (qa, qb)
+        return ozmm_prepared(qa, qb)
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(ctx.message)
+    def backward(ctx, g):
+        qa, qb = ctx.plans
+        ms, mode = qa.ms, qa.mode
+        g64 = g.to(torch.float64)
+        gstats = operand_stats(g64)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:  # dA = dC @ B^T
+            qg_l = quantize_matrix(g64, "lhs", ms, mode=mode, stats=gstats)
+            ga = ozmm_prepared(qg_l, transpose_plan(qb))
+        if ctx.needs_input_grad[1]:  # dB = A^T @ dC
+            qg_r = quantize_matrix(g64, "rhs", ms, mode=mode, stats=gstats)
+            gb = ozmm_prepared(transpose_plan(qa), qg_r)
+        return ga, gb, None, None
 
 
-def _no_vjp_message(pol: PrecisionPolicy, route: str) -> str:
-    if route == "pallas":
-        kernel = "ozmm_pallas_fused" if pol.fused else "ozmm_pallas"
-        return (f"policy {pol.spec!r}: backend='pallas' is forward-only — "
-                f"{kernel} has no VJP (serving/inference); the "
-                "emulated-GEMM backward is not ported yet (ROADMAP, autograd "
-                "and training slice)")
-    return (f"policy {pol.spec!r}: the emulated-GEMM backward "
-            "(repro/core/gemm.py::_ozmm_bwd) is not ported yet (ROADMAP, "
-            "autograd and training slice)")
+class _UnpreparedVJP(torch.autograd.Function):
+    """An emulated GEMM ``fn`` whose backward runs the two cotangent
+    products as unprepared calls of ``fn`` itself: the kernel route (the
+    reference's ``_ozmm_pallas_guarded``) and Ozaki-I. An explicit
+    ``+pallas`` is forward-only and raises instead."""
+
+    @staticmethod
+    def forward(ctx, a, b, fn, pol: PrecisionPolicy):
+        ctx.save_for_backward(a, b)
+        ctx.fn, ctx.pol = fn, pol
+        return fn(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        pol = ctx.pol
+        if pol.backend == "pallas":  # explicitly requested: refuse, don't reroute
+            kernel = "ozmm_pallas_fused" if pol.fused else "ozmm_pallas"
+            raise NotImplementedError(
+                f"policy {pol.spec!r}: backend='pallas' is forward-only — "
+                f"{kernel} has no VJP (serving/inference); differentiate "
+                "through the core backend (or backend='auto', which runs the "
+                "backward cotangent GEMMs as emulated GEMMs) instead")
+        a, b = ctx.saved_tensors
+        g64 = g.to(torch.float64)
+        ga = ctx.fn(g64, b.T) if ctx.needs_input_grad[0] else None
+        gb = ctx.fn(a.T, g64) if ctx.needs_input_grad[1] else None
+        return ga, gb, None, None
 
 
 def ozmm(a, b, policy=None, *, device=None) -> torch.Tensor:
@@ -133,17 +200,29 @@ def ozmm(a, b, policy=None, *, device=None) -> torch.Tensor:
     side may be a prepared ``QuantizedMatrix`` (2-D only); then the plan is
     the spec, and the pairing runs on the plan's device, on the route the
     policy's backend resolves to there.
+
+    Differentiable (module docstring): inputs that require grad get
+    gradients of their own dtype, through the emulated backward of the
+    route the policy resolves to; an explicit ``+pallas`` raises when the
+    gradient is asked for. Prepared operands are data, not differentiable
+    inputs.
     """
     pol = resolve_policy(policy, fallback=OZMM_DEFAULT_POLICY)
     if isinstance(a, QuantizedMatrix) or isinstance(b, QuantizedMatrix):
         return _ozmm_prepared_mixed(a, b, pol)
     dev = resolve_device(device)
     a, b = _as_f64(a, dev), _as_f64(b, dev)
+    if pol.scheme in OZAKI2_FAMILY:
+        _record_emulated(pol.scheme, pol.mode, OZAKI2_FAMILY[pol.scheme],
+                         pol.num_moduli, a.shape, b.shape)
     fn, route = _executor(pol, dev)
-    if (route != "native" and torch.is_grad_enabled()
-            and (a.requires_grad or b.requires_grad)):
-        return _NoVJP.apply(a, b, fn, _no_vjp_message(pol, route))
-    return _batched(fn, a, b)
+    if (route == "native" or not torch.is_grad_enabled()
+            or not (a.requires_grad or b.requires_grad)):
+        return _batched(fn, a, b)
+    if route == "core" and pol.scheme in OZAKI2_FAMILY:
+        ms, mode = pol.moduli_set(), pol.mode
+        return _batched(lambda x, y: _PlannedVJP.apply(x, y, ms, mode), a, b)
+    return _batched(lambda x, y: _UnpreparedVJP.apply(x, y, fn, pol), a, b)
 
 
 def _ozmm_prepared_mixed(a, b, pol: PrecisionPolicy) -> torch.Tensor:
@@ -151,9 +230,13 @@ def _ozmm_prepared_mixed(a, b, pol: PrecisionPolicy) -> torch.Tensor:
     fly on the plan's device. When the policy's backend resolves to the
     kernel route there, the pairing runs on the fused kernels
     (``ozmm_pallas_fused_prepared``), or on the phase-split pipeline under
-    ``+unfused`` (``ozmm_pallas_prepared``); otherwise on the core path."""
+    ``+unfused`` (``ozmm_pallas_prepared``); otherwise on the core path.
+    Gradients do not flow through prepared operands (plans are data); use
+    plain ``ozmm`` for the VJP."""
     anchor = a if isinstance(a, QuantizedMatrix) else b
     ms, dev = anchor.ms, anchor.device
+    _record_emulated(_FAMILY_SCHEME[ms.family], anchor.mode, ms.family, ms.n,
+                     a.shape, b.shape)
     qa = a if isinstance(a, QuantizedMatrix) else quantize_matrix(
         _as_f64(a, dev), "lhs", ms, mode=anchor.mode)
     qb = b if isinstance(b, QuantizedMatrix) else quantize_matrix(
@@ -230,3 +313,18 @@ def backend_matmul(a, b, policy=None, preferred_dtype: torch.dtype | None = None
     else:
         out = ozmm(a, b, pol, device=device)
     return out if preferred_dtype is None else out.to(preferred_dtype)
+
+
+def default_num_moduli(scheme: str) -> int | None:
+    """Paper-default decomposition arity for ``scheme``: the CRT modulus
+    count of an Ozaki-II scheme, the slice count of ``"ozaki1-fp8"`` (fed to
+    ``num_slices``), None for ``"native"``."""
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}; expected one of {SCHEMES}")
+    return {
+        "ozaki2-fp8": DEFAULT_NUM_MODULI["fp8-hybrid"],
+        "ozaki2-karatsuba": DEFAULT_NUM_MODULI["fp8-karatsuba"],
+        "ozaki2-int8": DEFAULT_NUM_MODULI["int8"],
+        "ozaki1-fp8": DEFAULT_NUM_SLICES,
+        "native": None,
+    }[scheme]

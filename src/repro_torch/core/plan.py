@@ -8,10 +8,11 @@ counterpart of ``repro/core/plan.py``.
 Fast-mode execution is bitwise-equal to ``ozmm``; accurate mode runs the
 bound GEMM between the cached round-up casts and extracts residues at
 pairing time, reproducing the unprepared path exactly.
+``transpose_plan`` re-plans a plan's source transposed in the same role,
+reusing its magnitude sketches (the backward primitive of ``core.gemm``).
 ``plan_from_arrays`` turns a JAX plan's leaves (as numpy arrays) into a
 plan of this package, so a plan built by the reference executes here with
-the same bits. The plan wire format and ``transpose_plan`` are not ported
-yet.
+the same bits. The plan wire format comes with the distributed slice.
 """
 from __future__ import annotations
 
@@ -36,6 +37,9 @@ class OperandStats:
     row_max: Optional[torch.Tensor]  # (m,) abs-max along axis 1
     col_sq: Optional[torch.Tensor]   # (k,) sum of squares along axis 0
     col_max: Optional[torch.Tensor]  # (k,) abs-max along axis 0
+
+    def transpose(self) -> "OperandStats":
+        return OperandStats(self.col_sq, self.col_max, self.row_sq, self.row_max)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +82,23 @@ class QuantizedMatrix:
     def device(self) -> torch.device:
         return (self.x if self.x is not None else self.parts[0][0]).device
 
+    def drop_source(self) -> "QuantizedMatrix":
+        """Shed the retained f64 source (fast mode only). Fast-mode execution
+        reads only ``lscale``/``parts``; the slimmed plan cannot be
+        transposed (backward) or used as a native fallback."""
+        if self.mode != "fast":
+            raise ValueError("accurate-mode plans need x for pairing-time "
+                             "residue extraction; cannot drop it")
+        return dataclasses.replace(self, x=None)
+
+    @property
+    def scale_stats(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(sq_norm, abs_max) along the contraction axis: the fast-mode
+        scaling inputs and the accurate-mode clip guard."""
+        if self.role == "lhs":
+            return self.stats.row_sq, self.stats.row_max
+        return self.stats.col_sq, self.stats.col_max
+
 
 def operand_stats(x: torch.Tensor) -> OperandStats:
     """Both-axis magnitude sketches (row/col squared norms and abs-maxima)."""
@@ -89,7 +110,9 @@ def operand_stats(x: torch.Tensor) -> OperandStats:
 def quantize_matrix(x: torch.Tensor, role: str, ms: ModuliSet, *,
                     mode: str = "accurate",
                     stats: OperandStats | None = None) -> QuantizedMatrix:
-    """Build the reusable quantization plan of one 2-D operand."""
+    """Build the reusable quantization plan of one 2-D operand. ``stats``
+    injects already-computed sketches (the transposed stats of a forward
+    operand, or the cotangent's, inside the VJP), used as given."""
     if role not in ROLES:
         raise ValueError(f"role must be one of {ROLES}, got {role!r}")
     if mode not in MODES:
@@ -110,6 +133,17 @@ def quantize_matrix(x: torch.Tensor, role: str, ms: ModuliSet, *,
     return QuantizedMatrix(role=role, family=ms.family, num_moduli=ms.n,
                            mode=mode, x=x, stats=st, lscale=lscale,
                            parts=parts, lpre=lpre, bar=bar)
+
+
+def transpose_plan(q: QuantizedMatrix) -> QuantizedMatrix:
+    """Plan for ``q.x.T`` in the SAME role, reusing the magnitude sketches:
+    the residue parts / bound cast are re-derived along the flipped scaling
+    axis, the norm/max reductions are not. The backward primitive:
+    dA = dC @ B^T pairs B^T as rhs with the forward rhs plan's row stats."""
+    if q.x is None:
+        raise ValueError("plan source was dropped (drop_source); transposing "
+                         "needs the original operand")
+    return quantize_matrix(q.x.T, q.role, q.ms, mode=q.mode, stats=q.stats.transpose())
 
 
 def pow2_tables(ms: ModuliSet, device) -> torch.Tensor:

@@ -46,3 +46,32 @@ def _zeros_like(x: torch.Tensor) -> torch.Tensor:
     zero byte is +0 in e4m3 and int8), so no fill kernel of the fp8 type is
     needed."""
     return torch.zeros_like(x.view(torch.uint8)).view(x.dtype)
+
+
+def row_major(x: torch.Tensor) -> torch.Tensor:
+    """An f64 operand as a contiguous matrix, the layout K1's frames and K6
+    read: a copy only when ``x`` is a strided view, such as A^T in the
+    backward's dB = A^T @ dC. ``row_major.copies`` counts the copies made."""
+    if x.is_contiguous():
+        return x
+    row_major.copies += 1
+    return x.contiguous()
+
+
+row_major.copies = 0
+
+
+def k_major(b: torch.Tensor) -> torch.Tensor:
+    """B^T as a contiguous matrix: the one copy of B (f64) that the unprepared
+    and accurate prepared routes make, so that K6 writes B's parts K-major.
+    No copy when B is itself the transpose of a contiguous matrix, such as
+    B^T in the backward's dA = dC @ B^T; ``k_major.copies`` counts the
+    copies made."""
+    bt = b.t()
+    if bt.is_contiguous():
+        return bt
+    k_major.copies += 1
+    return bt.contiguous()
+
+
+k_major.copies = 0

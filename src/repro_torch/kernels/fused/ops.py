@@ -21,7 +21,7 @@ from repro_torch.core import scaling
 from repro_torch.core.moduli import DEFAULT_NUM_MODULI, ModuliSet, make_moduli_set
 from repro_torch.core.plan import QuantizedMatrix, pair_exponents, pow2_tables
 
-from ..common import resolve_reconstruct, stack_parts
+from ..common import resolve_reconstruct, row_major, stack_parts
 from .kernel import KERNEL_TILE, MANT_SPLIT, ozmm_fused_parts, ozmm_fused_raw
 
 #: Env override of the padding tile: "bm,bn,bk" (the ``blocks=`` kwarg wins
@@ -130,8 +130,8 @@ def ozmm_pallas_fused(a: torch.Tensor, b: torch.Tensor, *, family: str = "fp8-hy
     ms = make_moduli_set(family, num_moduli or DEFAULT_NUM_MODULI[family])
     a = a.to(torch.float64)
     b = b.to(torch.float64)
-    scal = scaling.compute_scaling(a, b, ms, mode)
-    return _fused_from_frames(a, scal.lmu, b, scal.lnu, ms=ms,
+    scal = scaling.compute_scaling(a, b, ms, mode)  # on the layout the core route sees
+    return _fused_from_frames(row_major(a), scal.lmu, row_major(b), scal.lnu, ms=ms,
                               blocks=select_blocks(a.device.type, blocks))
 
 

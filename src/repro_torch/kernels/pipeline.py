@@ -8,10 +8,11 @@ of ``repro/kernels/pipeline.py``), the ``+pallas+unfused`` executor:
 Every phase is exact, so the digits, and the f64 result, equal the core
 route's (``core.ozaki2.ozmm_ozaki2``) and the fused kernels' bit for bit.
 B's residue parts are made K-major, (N, n, k), since the GEMMs' tensor-core
-instructions take 8-bit operands only K-major: K6 runs on B^T (``k_major``,
-one f64 copy; the residues are elementwise under a per-column exponent, so
-these are B's parts transposed, bit for bit), and a fast-mode plan's
-(N, k, n) stacks go through K2's ``transpose_parts`` once per call. Each
+instructions take 8-bit operands only K-major: K6 runs on B^T
+(``common.k_major``, one f64 copy; the residues are elementwise under a
+per-column exponent, so these are B's parts transposed, bit for bit), and
+a fast-mode plan's (N, k, n) stacks go through K2's ``transpose_parts``
+once per call. Each
 GEMM then reads B^T's plane in place, as the K-major view ``plane.t()``: no
 B is copied in the schedule. Between the phases the residue parts
 (N, m, k) / (N, n, k) and the product stacks (N, m, n) live in device
@@ -33,7 +34,7 @@ from repro_torch.core import scaling
 from repro_torch.core.moduli import DEFAULT_NUM_MODULI, ModuliSet, make_moduli_set
 from repro_torch.core.plan import QuantizedMatrix, pair_exponents
 
-from .common import stack_parts
+from .common import k_major, row_major, stack_parts
 from .crt_reconstruct import requant_garner
 from .fp8_gemm import fp8_gemm
 from .fused import transpose_parts
@@ -68,13 +69,6 @@ def residue_gemms(sa, sbt, ms: ModuliSet) -> tuple[torch.Tensor, ...]:
     return c1, c2, c3
 
 
-def k_major(b: torch.Tensor) -> torch.Tensor:
-    """B^T as a contiguous matrix: the one copy of B (f64) that the unprepared
-    and accurate prepared routes make, so that K6 writes B's parts K-major.
-    No copy when B is itself the transpose of a contiguous matrix."""
-    return b.t().contiguous()
-
-
 def _gemm_schedule(sa, sbt, ms: ModuliSet, lmu: torch.Tensor, lnu: torch.Tensor
                    ) -> torch.Tensor:
     """The GEMM schedule, then one requant/Garner pass on to C (m, n) f64."""
@@ -92,7 +86,7 @@ def ozmm_pallas(a: torch.Tensor, b: torch.Tensor, *, family: str = "fp8-hybrid",
     a = a.to(torch.float64)
     b = b.to(torch.float64)
     scal = scaling.compute_scaling(a, b, ms, mode)
-    sa = quant_residues_op(a, scal.lmu, ms=ms, axis=0)
+    sa = quant_residues_op(row_major(a), scal.lmu, ms=ms, axis=0)
     sbt = quant_residues_op(k_major(b), scal.lnu, ms=ms, axis=0)  # (N, n, k)
     return _gemm_schedule(sa, sbt, ms, scal.lmu, scal.lnu)
 

@@ -8,8 +8,10 @@ every file short for the parallel test run.
 import numpy as np
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from repro.core.gemm import ozmm as jax_ozmm
 from repro.core.ozaki2 import ozmm_ozaki2 as jax_ozmm_ozaki2
 from repro.testing import lognormal_matrix
 from repro_torch import ozmm
@@ -42,6 +44,27 @@ def assert_both_routes_match_reference(a, b, family: str, mode: str,
     fused = ozmm(a, b, spec + "+pallas", device="cpu")
     assert ozmm_fused_raw_ref.calls == calls + 1, "the kernel route skipped the plain version"
     np.testing.assert_array_equal(fused.numpy(), want)
+
+
+def reference_grads(a, b, spec, cotangent=None):
+    """jax.grad of sum(sin(ozmm(a, b))), or the VJP with ``cotangent``."""
+    if cotangent is None:
+        loss = lambda x, y: jnp.sum(jnp.sin(jax_ozmm(x, y, spec)))  # noqa: E731
+        return tuple(np.asarray(g) for g in jax.grad(loss, argnums=(0, 1))(
+            jnp.asarray(a), jnp.asarray(b)))
+    _, vjp = jax.vjp(lambda x, y: jax_ozmm(x, y, spec), jnp.asarray(a), jnp.asarray(b))
+    return tuple(np.asarray(g) for g in vjp(jnp.asarray(cotangent)))
+
+
+def port_grads(a, b, spec, cotangent=None):
+    ta = torch.from_numpy(a).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    c = ozmm(ta, tb, spec, device="cpu")
+    if cotangent is None:
+        torch.sin(c).sum().backward()
+    else:
+        c.backward(torch.from_numpy(cotangent))
+    return ta.grad.numpy(), tb.grad.numpy()
 
 
 class FakeCudaTensor(torch.Tensor):

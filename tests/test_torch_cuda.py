@@ -556,3 +556,71 @@ def test_accurate_scaling_ignores_the_tf32_switch_on_card():
         switch.allow_tf32 = prev
     assert torch.equal(got[True].lmu, got[False].lmu)
     assert torch.equal(got[True].lnu, got[False].lnu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["ozaki2-fp8/accurate", "ozaki2-int8/fast+unfused"])
+def test_gradient_on_card_equals_core_cotangent_gemms(spec):
+    """backend auto differentiates on the kernel route: the forward and both
+    cotangent GEMMs launch the route's kernels (K1 once a GEMM; K6 twice, K4
+    N times and K5 once a GEMM under '+unfused'), and A.grad / B.grad equal
+    ozmm(G, B^T, '+core') / ozmm(A^T, G, '+core') bitwise; an explicit
+    '+pallas' refuses the gradient."""
+    _need_card()
+    from repro_torch import kernels as kn
+
+    n = parse_policy(spec).moduli_set().n
+    per_gemm = ({kn.quant_residues_f64: 2, kn.int8_gemm: n, kn.requant_garner: 1}
+                if spec.endswith("+unfused") else {fused.ozmm_fused_raw: 1})
+    rng = np.random.default_rng(21)
+    a, b = _operands(rng, 200, 300, 130, 0.5)
+    g = torch.from_numpy(rng.standard_normal((200, 130))).cuda()
+    ta, tb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    before = {f: f.launches for f in per_gemm}
+    c = ozmm(ta, tb, spec)
+    c.backward(g)
+    assert {f: f.launches - before[f] for f in per_gemm} == {
+        f: 3 * k for f, k in per_gemm.items()}
+    core = spec.removesuffix("+unfused") + "+core"
+    assert torch.equal(ta.grad, ozmm(g, b.T, core))
+    assert torch.equal(tb.grad, ozmm(a.T, g, core))
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        ozmm(ta, tb, spec.removesuffix("+unfused") + "+pallas").sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["accurate", "fast"])
+def test_ozaki1_on_card_equals_cpu(mode):
+    """Ozaki-I's slice products are exact f32 GEMMs and its scaling exact
+    power-of-two multiplies, so the card gives the CPU's bits."""
+    _need_card()
+    rng = np.random.default_rng(22)
+    a, b = _operands(rng, 96, 256, 80, 2.0)
+    got = ozmm(a, b, f"ozaki1-fp8/{mode}@11")
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), ozmm(a.cpu(), b.cpu(), f"ozaki1-fp8/{mode}@11",
+                                       device="cpu"))
+
+
+@pytest.mark.cuda
+def test_bound_gemm_probe_on_card_equals_cpu(monkeypatch):
+    """The obs probe runs its bound GEMM on the card unless asked for the
+    CPU, and gives the CPU's result there: its f32 sums of e4m3 products are
+    exact at this spread, so only log2 may differ, by an ulp."""
+    _need_card()
+    from repro_torch.core import numerics
+    from repro_torch.obs import health
+
+    devices, product = [], numerics.matmul_exact_fp8
+
+    def record(x, y):
+        devices.append(x.device.type)
+        return product(x, y)
+
+    monkeypatch.setattr(numerics, "matmul_exact_fp8", record)
+    rng = np.random.default_rng(23)
+    a, b = _lognormal(rng, (200, 300), 0.5), _lognormal(rng, (300, 130), 0.5)
+    got = health.bound_gemm_probe(a, b)
+    want = health.bound_gemm_probe(a, b, device="cpu")
+    assert devices == ["cuda", "cpu"]
+    assert abs(got - want) <= 1e-12

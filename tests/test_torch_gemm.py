@@ -1,7 +1,8 @@
 """repro_torch's public GEMM API vs the reference: the policy spec grammar
 round-trips to the same ``spec``, executor resolution, the card-by-default
-device rule, plan interchange with the JAX package, and the routes this
-slice does not port yet refusing loudly. Tolerance: bitwise."""
+device rule, plan interchange with the JAX package, gradients on every
+route but an explicit '+pallas' (which refuses loudly), and Ozaki-I.
+Tolerance: bitwise."""
 import dataclasses
 
 import numpy as np
@@ -16,6 +17,7 @@ from repro.precision.policy import parse_policy as jax_parse_policy
 from repro.testing import lognormal_matrix
 from repro_torch import backend_matmul, ozmm, plan_from_arrays, prepare_operand
 from repro_torch.core import gemm
+from repro_torch.core.ozaki1 import ozmm_ozaki1_fp8
 from repro_torch.core.plan import ozmm_prepared
 from repro_torch.precision import (parse_policy, resolve_policy, set_default_policy,
                                    use_policy)
@@ -121,27 +123,39 @@ def test_plan_from_arrays_interchange(rng, family, mode):
                                    r.view(torch.uint8) if r.dtype != torch.int8 else r)
 
 
-def test_gradient_requests_raise_on_emulated_routes(rng):
+def test_gradient_requests_raise_on_emulated_routes(rng, monkeypatch):
+    """Only an explicit '+pallas' refuses a gradient (forward-only, as in the
+    reference); the core route and the auto-derived kernel route give
+    nonzero gradients, and native differentiates as a plain matmul."""
     a = torch.from_numpy(lognormal_matrix(rng, (8, 16), 1.0)).requires_grad_()
     b = torch.from_numpy(lognormal_matrix(rng, (16, 8), 1.0))
     with pytest.raises(NotImplementedError, match=r"forward-only.*ozmm_pallas_fused"):
         ozmm(a, b, "ozaki2-fp8/fast@4+pallas", device="cpu").sum().backward()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ozmm(a, b, "ozaki2-fp8/fast@4", device="cpu").sum().backward()
+    ozmm(a, b, "ozaki2-fp8/fast@4", device="cpu").sum().backward()  # auto on the CPU: core
+    core_grad, a.grad = a.grad, None
+    assert core_grad is not None and bool((core_grad != 0).all())
+    monkeypatch.setattr(gemm, "_resolve_backend", lambda pol, dev: "pallas")
+    ozmm(a, b, "ozaki2-fp8/fast@4", device="cpu").sum().backward()  # auto: the kernel route
+    assert torch.equal(a.grad, core_grad)
+    monkeypatch.undo()
+    a.grad = None
     ozmm(a, b, "native", device="cpu").sum().backward()  # a plain matmul differentiates
     torch.testing.assert_close(a.grad, b.sum(dim=1).expand(8, 16))
 
 
 def test_unported_routes_refuse(rng):
-    """Ozaki-I is not ported and refuses; '+compiled' refuses CPU tensors.
-    The phase-split '+pallas+unfused' route, which used to refuse, runs
-    (raw and prepared) and equals '+core'."""
+    """Ozaki-I, which used to refuse, runs (on core) and equals its executor;
+    '+compiled' refuses CPU tensors. The phase-split '+pallas+unfused'
+    route, which used to refuse, runs (raw and prepared) and equals
+    '+core'."""
     a = lognormal_matrix(rng, (8, 16), 1.0)
     np.testing.assert_array_equal(
         ozmm(a, a.T, "ozaki2-fp8/fast+pallas+unfused", device="cpu").numpy(),
         ozmm(a, a.T, "ozaki2-fp8/fast+core", device="cpu").numpy())
-    with pytest.raises(NotImplementedError, match="ozaki1-fp8"):
-        ozmm(a, a.T, "ozaki1-fp8/fast", device="cpu")
+    ta = torch.from_numpy(a)
+    np.testing.assert_array_equal(
+        ozmm(a, a.T, "ozaki1-fp8/fast", device="cpu").numpy(),
+        ozmm_ozaki1_fp8(ta, ta.T, num_slices=11, mode="fast").numpy())
     with pytest.raises(ValueError, match="plain versions"):
         ozmm(a, a.T, "ozaki2-fp8/fast+pallas+compiled", device="cpu")
     qa = prepare_operand(a, "lhs", "ozaki2-fp8/fast@4", device="cpu")

@@ -31,7 +31,9 @@ def test_no_jax_or_repro_imports_in_the_port():
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.kernels.fused, repro_torch.kernels.build, "
             "repro_torch.kernels.pipeline, "
-            "repro_torch.linalg, repro_torch.precision.resolve; "
+            "repro_torch.linalg, repro_torch.precision.resolve, repro_torch.obs, "
+            "repro_torch.obs.metrics, repro_torch.obs.trace, repro_torch.obs.export, "
+            "repro_torch.obs.health, repro_torch.core.ozaki1, repro_torch.core.perf_model; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
     env = {**os.environ, "PYTHONPATH": str(PORT.parent)}
