@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                          # from the root of a checkout
     python3 chip_smoke.py --size 2048 --hpl-n 1024  # a quick first call
+    python3 chip_smoke.py --serve-layers 1          # phase 10 at depth 1
 
 Phases, each printing its elapsed time; any failed check raises and the
 script exits non-zero without printing a result:
@@ -114,6 +115,35 @@ script exits non-zero without printing a result:
    bound GEMM on the card by default, bounds log2 max|A @ B| and agrees
    with its device="cpu" result within log2(1 + k 2^-24), the bound's own
    allowance for the f32 summation order.
+10. serving (repro_torch.models + repro_torch.serve): qwen2-7b at its
+   published width (d_model 3584, 28/4 heads x 128, d_ff 18944, vocab
+   152064, QKV bias, bf16 compute, f32 weights from the seed), depth cut to
+   --serve-layers (default 2 of 28), through BatchingEngine(policy
+   "ozaki2-fp8/fast", 4 slots, pages of 16): the weights quantized once
+   into the WeightResidueCache (timed; its nbytes), then 4 greedy requests
+   with prompts of 17, 32, 48 and 64 seeded tokens and 8 new tokens each.
+   Checks: every request finishes with 8 in-vocabulary tokens; one prefill
+   wave and 7 decode steps; K2 (and its transpose) launched (7 L + 1) times
+   a wave or step and K1, K3-K6 never; K2 at its first call of every
+   distinct input shape of the run (prefill, decode, lm_head) bitwise
+   against its plain version; the first prefill's and decode step's logits
+   equal the same engine's on "ozaki2-fp8/fast+core" (sharing the weight
+   cache) bitwise; requests 0 and 3 run alone through ServeEngine give the
+   batch's tokens and logits bitwise. Reported: quantization s, cache and
+   peak memory, TTFT, decode ms a step, tokens/s (a second, timed run),
+   one decode step split by CUDA events (K2's core, the weight parts'
+   per-call stack_parts + _pad3 + transpose_parts, the activation's
+   quantize_matrix + pair_exponents, attention's _sdpa + paged KV, the
+   rest), K2 at lm_head's decode shape beside its plain version, bound,
+   cuBLAS DGEMM and its products through torch._scaled_mm, and the same
+   timed run under "native" (bf16 torch.matmul, a yardstick). Then the
+   smoke width (get_config("qwen2-7b", "smoke"), 3 requests, 2 slots)
+   under ozaki2-fp8/accurate (K1), ozaki2-fp8/fast+unfused (K3, K5),
+   ozaki2-fp8/accurate+unfused (K6, K3, K5) and ozaki2-int8/fast+unfused
+   (K4, K5): tokens and logits bitwise equal to the policy's '+core' twin,
+   each kernel's launches as predicted a GEMM call; and two requests of
+   accuracy classes "relaxed" and "fp64" served by two policy groups with
+   ordered moduli.
 
 The last two lines are the card (nvidia-smi name, power limit) and
 {"ok": true, "device": {...}}; before them a {"kernels": [...]} line.
@@ -121,8 +151,10 @@ The last two lines are the card (nvidia-smi name, power limit) and
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -132,6 +164,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# Phase 10's full-width serving run holds ~36 GB of weights and plans beside
+# ~39 GB of per-call part copies (PERF.md): without expandable segments the
+# caching allocator's fragments leave too little contiguous room for them.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 #: Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data
 #: sheet): HBM bytes/s, and FP8 = int8 tensor operations/s.
@@ -225,11 +261,18 @@ class CallTotals:
             self.spans.append((start, end))
             return out
 
+        # a wrapped kernel wrapper counts its launches on its own attribute,
+        # through its module's global name: give the stand-in the counters and
+        # hand them back on exit
+        self.timed = functools.update_wrapper(timed, fn)
         setattr(self.module, self.name, timed)
         return self
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+        for key, value in vars(self.timed).items():
+            if key != "__wrapped__":
+                setattr(self.orig, key, value)
 
     def seconds(self) -> float:
         import torch
@@ -1080,12 +1123,430 @@ def autograd_phase(args, dev, gen, fused_rows, unfused_split) -> dict:
     return out
 
 
+#: Phase 10: qwen2-7b at its published width (depth cut to --serve-layers),
+#: four greedy requests with ragged prompts, on the default fast policy.
+SERVE_ARCH = "qwen2-7b"
+SERVE_POLICY = "ozaki2-fp8/fast"
+SERVE_PROMPTS = (17, 32, 48, 64)
+SERVE_NEW_TOKENS = 8
+SERVE_PAGE = 16
+#: Emulated GEMMs a layer makes (wq, wk, wv, wo, w_gate, w_up, w_down).
+SERVE_GEMMS_PER_LAYER = 7
+#: The smoke width's policies (backend auto) and the kernels each emulated
+#: GEMM with a cached weight launches on the card, by counter name (N the
+#: policy's moduli; K2's transpose turns a cached fast plan's B parts
+#: K-major for K3/K4 as well).
+SERVE_SMOKE_POLICIES = {
+    "ozaki2-fp8/accurate": lambda n: {"K1": 1, "K1 prologue": 2},
+    "ozaki2-fp8/fast+unfused": lambda n: {"K3": 3 * n, "K5": 1, "K2 transpose": 1},
+    "ozaki2-fp8/accurate+unfused": lambda n: {"K6": 2, "K3": 3 * n, "K5": 1},
+    "ozaki2-int8/fast+unfused": lambda n: {"K4": n, "K5": 1, "K2 transpose": 1},
+}
+
+
+class CheckFirstCallPerShape:
+    """Wraps ``module.name`` while in the block; at its first call at each
+    distinct set of input shapes the result is held bitwise against
+    ``ref`` on the same arguments, right after the call (the arguments of a
+    later check may not fit beside the run's). ``ref`` is a plain version,
+    so the check launches no kernel."""
+
+    def __init__(self, module, name: str, ref, what: str):
+        self.module, self.name, self.ref, self.what, self.shapes = module, name, ref, what, []
+
+    def __enter__(self):
+        self.orig = fn = getattr(self.module, self.name)
+
+        def checked(*a, **kw):
+            out = fn(*a, **kw)
+            key = shapes_of(a)
+            if key not in self.shapes:
+                self.shapes.append(key)
+                check_equal(out, self.ref(*a, **kw), f"{self.what} at input shapes {key}")
+            return out
+
+        setattr(self.module, self.name, checked)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def serve_counters():
+    """The launch counters of the six kernels and of K1's prologue and K2's
+    transpose, by name: (get, zero)."""
+    from repro_torch import kernels as kn
+    from repro_torch.kernels.fused import raw_parts, transpose_parts
+
+    fns = {"K1": kn.ozmm_fused_raw, "K1 prologue": raw_parts, "K2": kn.ozmm_fused_parts,
+           "K2 transpose": transpose_parts, "K3": kn.fp8_gemm, "K4": kn.int8_gemm,
+           "K5": kn.requant_garner, "K6": kn.quant_residues_f64,
+           "K6 frame entry": kn.quant_residues}
+
+    def get():
+        return {k: f.launches for k, f in fns.items()}
+
+    def zero():
+        for f in fns.values():
+            f.launches = 0
+
+    return get, zero
+
+
+class ServeRecorder:
+    """Records, per request, the logits row of every token an engine emits
+    (a copy on the card), and counts the prefill waves and decode steps the
+    model runs while in the block."""
+
+    def __init__(self, engine):
+        self.engine, self.rows, self.waves, self.steps = engine, {}, 0, 0
+
+    def __enter__(self):
+        from repro_torch.models import model as model_mod
+
+        emit = self.engine._emit
+
+        def record(slot, row):
+            self.rows.setdefault(slot.req.request_id, []).append(row.detach().clone())
+            return emit(slot, row)
+
+        self.engine._emit = record
+        cls = model_mod.Model
+        self.orig = (cls.prefill_slots, cls.decode_slots, cls.prefill)
+        pre, dec, pre_dense = self.orig
+
+        def prefill_slots(*a, **kw):
+            self.waves += 1
+            return pre(*a, **kw)
+
+        def decode_slots(*a, **kw):
+            self.steps += 1
+            return dec(*a, **kw)
+
+        def prefill(*a, **kw):
+            self.waves += 1
+            return pre_dense(*a, **kw)
+
+        cls.prefill_slots, cls.decode_slots, cls.prefill = prefill_slots, decode_slots, prefill
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as model_mod
+
+        del self.engine._emit
+        self.engine = None  # the engine's weights and plans are not kept alive here
+        cls = model_mod.Model
+        cls.prefill_slots, cls.decode_slots, cls.prefill = self.orig
+
+
+def serve_phase(args, dev) -> dict:
+    """Phase 10 (module docstring): qwen2-7b at its published width through
+    repro_torch.serve on the card, then the smoke width under the other
+    policies. Returns the kernels line's row of K2 at the serving path's
+    decode shape and the phase's launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import gemm
+    from repro_torch.core.plan import quantize_matrix
+    from repro_torch.kernels import stack_parts
+    from repro_torch.kernels.fused import (KERNEL_TILE, fused_parts_args, ops,
+                                           ozmm_fused_parts, ozmm_fused_parts_ref,
+                                           transpose_parts)
+    from repro_torch.kernels.fused import kernel as fused_kernel
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.precision import parse_policy
+    from repro_torch.serve import BatchingEngine, RequestStatus, ServeEngine
+
+    get_counts, zero_counts = serve_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    layers = args.serve_layers
+    cfg = get_config(SERVE_ARCH, "full", num_layers=layers)
+    model = Model(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    params = model.init(gen)
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in SERVE_PROMPTS]
+    max_len = -(-(max(SERVE_PROMPTS) + SERVE_NEW_TOKENS) // SERVE_PAGE) * SERVE_PAGE
+    engine_kw = dict(max_len=max_len, max_slots=len(prompts), page_size=SERVE_PAGE)
+    print(f"  {cfg.name} d_model {cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV "
+          f"x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {layers} of 28 layers; "
+          f"params {sum(p.numel() for p in params.parameters()) / 1e9:.3f} G elements", flush=True)
+
+    # -- quantize the weights once, through the engine's cache --------------
+    torch.cuda.synchronize()
+    tq = time.perf_counter()
+    eng = BatchingEngine(model, params, policy=SERVE_POLICY, **engine_kw)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - tq
+    wcache = eng._base_group.weight_cache
+    check(len(wcache) == SERVE_GEMMS_PER_LAYER * layers + 1,
+          f"weight cache holds {len(wcache)} plans, predicted {SERVE_GEMMS_PER_LAYER * layers + 1}")
+    cache_gb = wcache.nbytes() / 1e9
+    print(f"  quantization {quant_s:.2f} s, {len(wcache)} plans, WeightResidueCache.nbytes() "
+          f"{cache_gb:.3f} GB", flush=True)
+
+    # -- the checked run: launches, each K2 shape vs its plain version -------
+    per_wave = SERVE_GEMMS_PER_LAYER * layers + 1
+    zero_counts()
+    with ServeRecorder(eng) as rec, CheckFirstCallPerShape(
+            ops, "ozmm_fused_parts", ozmm_fused_parts_ref, "serve K2 vs plain version") as k2c:
+        rids = [eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+        results = eng.run()
+        torch.cuda.synchronize()
+    counts = get_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for rid in rids:
+        r = results[rid]
+        check(r.status is RequestStatus.FINISHED and len(r.tokens) == SERVE_NEW_TOKENS
+              and all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"request {rid}: {r.status}, tokens {r.tokens}")
+    calls = rec.waves + rec.steps
+    check((rec.waves, rec.steps) == (1, SERVE_NEW_TOKENS - 1),
+          f"(prefill waves, decode steps) {(rec.waves, rec.steps)}, predicted "
+          f"{(1, SERVE_NEW_TOKENS - 1)}")
+    want = {k: 0 for k in counts}
+    want["K2"] = want["K2 transpose"] = per_wave * calls
+    check(counts == want, f"serve launches {counts}, predicted {want}")
+    batch_rows = {i: rec.rows[rid] for i, rid in enumerate(rids)}
+    tokens = {i: results[rid].tokens for i, rid in enumerate(rids)}
+    print(f"  checked run: {len(rids)} requests x {SERVE_NEW_TOKENS} tokens, {rec.waves} prefill "
+          f"wave + {rec.steps} decode steps, K2 {counts['K2']} launches = ({SERVE_GEMMS_PER_LAYER}"
+          f" x {layers} + 1) x {calls}, K1 and K3-K6 0; K2 at {len(k2c.shapes)} distinct input "
+          f"shapes == plain version (bitwise): {k2c.shapes}; peak memory {peak_gb:.2f} GB",
+          flush=True)
+    print(f"  tokens: {[tokens[i] for i in range(len(prompts))]}", flush=True)
+
+    # -- the timed run (warm cache, same requests) ---------------------------
+    def timed_run(engine):
+        rids = [engine.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+        step_ms = []
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        while len(engine.scheduler) or any(g.num_active for g in engine._groups.values()):
+            ts = time.perf_counter()
+            engine.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+        total = time.perf_counter() - t_run
+        res = engine.results
+        return {"ttft_ms": [res[r].ttft * 1e3 for r in rids],
+                "first_step_ms": step_ms[0],
+                "decode_ms": statistics.median(step_ms[1:]), "steps": len(step_ms),
+                "tokens_per_s": len(rids) * SERVE_NEW_TOKENS / total, "seconds": total,
+                "tokens": [res[r].tokens for r in rids]}
+
+    fast = timed_run(eng)
+    check(fast["tokens"] == [tokens[i] for i in range(len(prompts))],
+          "the timed run's tokens differ from the checked run's")
+
+    # -- one decode step split by CUDA events --------------------------------
+    for p in prompts:
+        eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
+    eng.step()  # the prefill wave and the first decode step
+    torch.cuda.synchronize()
+    with CallTotals(fused_kernel, "gemm_core") as t_core, \
+            CallTotals(fused_kernel, "transpose_parts") as t_tr, \
+            CallTotals(ops, "stack_parts") as t_stack, CallTotals(ops, "_pad3") as t_pad, \
+            CallTotals(gemm, "quantize_matrix") as t_qa, \
+            CallTotals(ops, "pair_exponents") as t_pe, \
+            CallTotals(attn_mod, "_sdpa") as t_sdpa, \
+            CallTotals(attn_mod, "paged_update") as t_pu, \
+            CallTotals(attn_mod, "paged_gather") as t_pg:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        eng.step()
+        end.record()
+        torch.cuda.synchronize()
+    step_total = start.elapsed_time(end)
+    split = {"K2 core": t_core.seconds() * 1e3,
+             "weight parts: stack_parts + _pad3 + transpose_parts":
+                 (t_stack.seconds() + t_pad.seconds() + t_tr.seconds()) * 1e3,
+             "activation quantization: quantize_matrix + pair_exponents":
+                 (t_qa.seconds() + t_pe.seconds()) * 1e3,
+             "attention: _sdpa + paged_update + paged_gather":
+                 (t_sdpa.seconds() + t_pu.seconds() + t_pg.seconds()) * 1e3}
+    split["rest"] = step_total - sum(split.values())
+    fast["decode_step_split_ms"] = {"step": step_total, **split}
+    print(f"  decode step {step_total:.2f} ms (CUDA events): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+          + f"; K2 core calls {len(t_core.spans)}, transposes {len(t_tr.spans)}", flush=True)
+    eng.run()
+
+    # -- K2 at the decode shape of lm_head, timed beside its yardsticks ------
+    ms_set = parse_policy(SERVE_POLICY).moduli_set()
+    x_dec = torch.randn((len(prompts), cfg.d_model), generator=gen, device=dev,
+                        dtype=torch.float64)
+    qa = quantize_matrix(x_dec, "lhs", ms_set, mode="fast")
+    qb = eng._base_group.serve_params.lm_head
+    fa = fused_parts_args(stack_parts(qa.parts, ms_set), qa.lscale,
+                          stack_parts(qb.parts, ms_set), qb.lscale, ms_set, KERNEL_TILE)
+    m, k, n = len(prompts), cfg.d_model, cfg.padded_vocab
+    got = ozmm_fused_parts(*fa, ms=ms_set)
+    plain = ozmm_fused_parts_ref(*fa, ms=ms_set)
+    max_err = (got - plain).abs().max().item()
+    del got, plain
+    ms_k2 = cuda_ms(lambda: ozmm_fused_parts(*fa, ms=ms_set))
+    ms_plain = cuda_ms(lambda: ozmm_fused_parts_ref(*fa, ms=ms_set), 3)
+    pbk = transpose_parts(fa[1], ms=ms_set)
+    ms_products = cuda_ms(library_products(fa[0], pbk, fa[1], ms_set))
+    del pbk, fa
+    torch.cuda.empty_cache()
+    w64 = params.lm_head.to(torch.float64)
+    ms_dgemm = cuda_ms(lambda: torch.matmul(x_dec, w64))
+    del w64
+    t_ops = 3 * ms_set.n * 2 * m * k * n / H100_FP8_OPS_PER_S * 1e3
+    t_bytes = part_bytes(ms_set, m, k, n) / H100_BYTES_PER_S * 1e3
+    k2_row = {"name": "ozmm_fused_parts", "policy": SERVE_POLICY, "shape": [m, k, n],
+              "padded_m": KERNEL_TILE[0], "route": "cuda",
+              "source": "src/repro_torch/csrc/fused_parts.cu",
+              "replaces": "src/repro/kernels/fused/kernel.py:265",
+              "launches": counts["K2"], "max_abs_err": max_err, "ms": ms_k2,
+              "plain_ms": ms_plain, "bound_ms": max(t_ops, t_bytes),
+              "bound_by": "bytes" if t_bytes > t_ops else "operations",
+              "library_ms": ms_dgemm, "products_library_ms": ms_products}
+    check(max_err == 0.0, "serve K2 at the lm_head decode shape differs from its plain version")
+    print(f"  K2 at lm_head's decode shape {m}x{k}x{n} (m padded to {KERNEL_TILE[0]}): "
+          f"{ms_k2:.2f} ms, plain {ms_plain:.2f} ms, bound {max(t_ops, t_bytes):.2f} ms "
+          f"({k2_row['bound_by']}), cuBLAS DGEMM {ms_dgemm:.2f} ms, its {3 * ms_set.n} products "
+          f"through torch._scaled_mm {ms_products:.2f} ms", flush=True)
+
+    # -- auto vs +core: the first prefill and decode step, bitwise -----------
+    core_pol = dataclasses.replace(parse_policy(SERVE_POLICY), backend="core")
+    core_eng = BatchingEngine(model, params, policy=core_pol, weight_cache=wcache, **engine_kw)
+    zero_counts()
+    with ServeRecorder(core_eng) as core_rec:
+        core_rids = [core_eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+        core_eng.step()  # the prefill wave and the first decode step
+    check(all(v == 0 for v in get_counts().values()), "the +core engine launched a kernel")
+    for i, rid in enumerate(core_rids):
+        for j, row in enumerate(core_rec.rows[rid]):
+            check_equal(batch_rows[i][j], row, f"request {i} token {j}: auto vs +core logits")
+    print(f"  auto == {core_pol.spec} logits, first prefill and first decode step, all "
+          f"{len(prompts)} requests (bitwise)", flush=True)
+    del core_eng, eng, wcache, qb
+    torch.cuda.empty_cache()
+
+    # -- two requests alone through ServeEngine: batch == alone, bitwise -----
+    se = ServeEngine(model, params, max_len=max_len, policy=SERVE_POLICY)
+    inner = se._engine_for(1)
+    for i in (0, len(prompts) - 1):
+        with ServeRecorder(inner) as alone:
+            got = se.generate({"tokens": torch.tensor([prompts[i]])}, steps=SERVE_NEW_TOKENS)
+        check(got[0].tolist() == tokens[i], f"request {i}: alone {got[0].tolist()} vs batch "
+                                            f"{tokens[i]}")
+        (rows,) = alone.rows.values()
+        for j, row in enumerate(rows):
+            check_equal(row, batch_rows[i][j], f"request {i} token {j}: alone vs batch logits")
+    print(f"  requests 0 and {len(prompts) - 1} alone through ServeEngine == in the batch, "
+          "tokens and logits (bitwise)", flush=True)
+    del se, inner
+    torch.cuda.empty_cache()
+
+    # -- the yardstick: the same engine under native (bf16 torch.matmul) -----
+    nat = timed_run(BatchingEngine(model, params, policy="native", **engine_kw))
+    print(f"  timed run, {len(prompts)} requests x {SERVE_NEW_TOKENS} tokens: " + "; ".join(
+        f"{name}: TTFT {', '.join(f'{t:.1f}' for t in r['ttft_ms'])} ms, first step "
+        f"{r['first_step_ms']:.1f} ms, decode {r['decode_ms']:.2f} ms a step (median of "
+        f"{r['steps'] - 1}), {r['tokens_per_s']:.1f} tokens/s"
+        for name, r in (("fast", fast), ("native", nat))), flush=True)
+    del params, model
+    torch.cuda.empty_cache()
+    out = {"config": cfg.name, "layers": layers, "policy": SERVE_POLICY,
+           "quantization_s": quant_s, "weight_cache_gb": cache_gb, "peak_gb": peak_gb,
+           "launches": counts, "fast": fast, "native": nat,
+           "smoke_width": serve_smoke_width(args, dev)}
+    return {"k2_row": k2_row, "serve": out}
+
+
+def serve_smoke_width(args, dev) -> dict:
+    """Phase 10 at the smoke width: the engine under each policy of
+    SERVE_SMOKE_POLICIES against its '+core' twin (tokens and logits
+    bitwise), each kernel's launches as predicted; two accuracy classes as
+    two policy groups with ordered moduli. Returns the launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.precision import parse_policy
+    from repro_torch.serve import BatchingEngine, RequestStatus
+
+    get_counts, zero_counts = serve_counters()
+    cfg = get_config(SERVE_ARCH, "smoke")
+    model = Model(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 1)
+    params = model.init(gen)
+    rng = np.random.default_rng(args.seed + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 7, 4)]
+    engine_kw = dict(max_len=12, max_slots=2, page_size=4)
+    per_wave = SERVE_GEMMS_PER_LAYER * cfg.num_layers + 1
+
+    def run(policy):
+        eng = BatchingEngine(model, params, policy=policy, **engine_kw)
+        zero_counts()
+        with ServeRecorder(eng) as rec:
+            rids = [eng.submit(p, max_new_tokens=3) for p in prompts]
+            res = eng.run()
+            torch.cuda.synchronize()
+        check(all(res[r].status is RequestStatus.FINISHED for r in rids), f"{policy}: unfinished")
+        return [res[r].tokens for r in rids], [rec.rows[r] for r in rids], rec, get_counts()
+
+    launches = {}
+    for spec, per_call in SERVE_SMOKE_POLICIES.items():
+        pol = parse_policy(spec)
+        toks, rows, rec, counts = run(pol)
+        core = dataclasses.replace(pol, backend="core", fused=True)
+        toks_c, rows_c, _, counts_c = run(core)
+        check(all(v == 0 for v in counts_c.values()), f"{core.spec} launched a kernel")
+        check(toks == toks_c, f"{spec}: tokens {toks} vs +core {toks_c}")
+        for i, (rs, rcs) in enumerate(zip(rows, rows_c)):
+            for j, (r, rc) in enumerate(zip(rs, rcs)):
+                check_equal(r, rc, f"{spec} request {i} token {j}: logits vs +core")
+        calls = per_wave * (rec.waves + rec.steps)
+        want = {k: 0 for k in counts}
+        want.update({k: v * calls for k, v in per_call(pol.moduli_set().n).items()})
+        check(counts == want, f"{spec}: launches {counts}, predicted {want}")
+        launches[spec] = {k: v for k, v in counts.items() if v}
+        print(f"  smoke width {spec}: {rec.waves} waves + {rec.steps} decode steps, "
+              f"launches {launches[spec]} as predicted; tokens and logits == {core.spec} "
+              "(bitwise)", flush=True)
+
+    base = parse_policy(SERVE_POLICY)
+    eng = BatchingEngine(model, params, policy=base, **engine_kw)
+    zero_counts()
+    r_lo = eng.submit(prompts[0], max_new_tokens=2, accuracy="relaxed")
+    r_hi = eng.submit(prompts[1], max_new_tokens=2, accuracy="fp64")
+    res = eng.run()
+    counts = get_counts()
+    specs = [res[r].policy_spec for r in (r_lo, r_hi)]
+    moduli = [parse_policy(sp).num_moduli for sp in specs]
+    check(len(eng._groups) == 3 and len(set(specs)) == 2 and moduli[0] < moduli[1],
+          f"accuracy classes: groups {list(eng.stats()['groups'])}, specs {specs}")
+    check(counts["K2"] > 0 and all(res[r].status is RequestStatus.FINISHED for r in (r_lo, r_hi)),
+          f"accuracy classes: K2 launches {counts['K2']}")
+    print(f"  accuracy classes relaxed / fp64: policy groups {specs}, moduli {moduli} "
+          f"(ordered), K2 {counts['K2']} launches", flush=True)
+    return {"launches": launches, "accuracy_groups": specs}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size", type=int, default=8192,
                     help="m = n = k of the main path (default 8192)")
     ap.add_argument("--hpl-n", type=int, default=8192,
                     help="n of the HPL runs of phase 7 (default 8192)")
+    ap.add_argument("--serve-layers", type=int, default=2,
+                    help="layers of qwen2-7b in phase 10 (default 2 of 28)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1512,6 +1973,11 @@ def main() -> int:
     # ---- 9. autograd, Ozaki-I, the perf model, obs -------------------------
     autograd_phase(args, dev, gen, rows, unfused_split)
     t0 = phase("9 autograd/ozaki1/perf-model/obs", t0)
+
+    # ---- 10. serving: qwen2-7b at full width, then the smoke width ---------
+    serve = serve_phase(args, dev)
+    t0 = phase("10 serve", t0)
+    print(json.dumps({"serve": serve["serve"]}))
     print(f"total {time.perf_counter() - t_start:.1f} s; DEFAULT_NUM_MODULI "
           f"{DEFAULT_NUM_MODULI}", flush=True)
 
@@ -1522,7 +1988,7 @@ def main() -> int:
                    launches=next(r for r in hpl_rows
                                  if r["policy"] == "ozaki2-fp8/fast")["k2_launches"])
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
-                                  for row in (main, k2_main, *unfused_rows)]}))
+                                  for row in (main, k2_main, *unfused_rows, serve["k2_row"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,195 @@
+"""Attention (the torch counterpart of ``repro/models/attention.py``, its GQA
+part): RoPE, QKV bias, softcap, sliding-window/global alternation, head
+padding.
+
+Cache contract (serve substrate):
+  GQA cache: {"k": (B, L, KV, hd), "v": (B, L, KV, hd)}  + a shared "pos"
+Prefill writes [0, S); decode reads [0, pos] and writes slot pos.
+
+Continuous-batching extensions (``repro_torch.serve.batching``): ``t.pos``
+may be a per-slot vector (B,) instead of a shared scalar, ``t.lengths``
+masks ragged right-padded prefill batches, and ``t.block_tables`` switches
+the cache tensors from dense per-slot arrays to shared paged pools
+(``paged_kv``): {"k"/"v": (P, ps, KV, hd)}. All three are bitwise-neutral:
+gathered pools reproduce the dense layout, and padded key positions carry
+exactly-zero softmax weight (exp(-1e30) underflows to 0.0).
+
+Caches are written in place (the reference donates them to its jitted
+steps) and returned. The two attention products stay plain ``torch.einsum``
+calls, as in the reference, where they are no Pallas kernel. MLA
+(deepseek-v3's latent attention) is not ported yet (ROADMAP Queue A item 5).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Union
+
+import torch
+from torch import nn
+
+from .config import ModelConfig
+from .layers import apply_rope, dense_init, frozen, matmul, softcap, zeros
+from .paged_kv import paged_gather, paged_update
+
+
+class AttnTemporal(NamedTuple):
+    positions: torch.Tensor  # (B, S) query positions
+    cache_len: Optional[int]  # cache length if attending over a cache
+    pos: Optional[Union[int, torch.Tensor]]  # int or (B,) length for decode masking
+    lengths: Optional[torch.Tensor] = None  # (B,) valid prompt lengths (ragged prefill)
+    block_tables: Optional[torch.Tensor] = None  # (B, nb) paged-KV page map
+
+
+def _mla_not_ported(cfg: ModelConfig):
+    raise NotImplementedError(
+        f"{cfg.name}: MLA (latent attention) is not ported to repro_torch yet; "
+        "ROADMAP Queue A item 5 lists it first among the remaining model pieces")
+
+
+# ------------------------------------------------------------------ GQA
+def _h_eff(cfg: ModelConfig) -> int:
+    """Effective Q-head count: padded to attn_head_pad_to when set (padded
+    wq columns / wo rows are zero, so outputs are exact)."""
+    return max(cfg.attn_head_pad_to, cfg.num_heads) if cfg.attn_head_pad_to else cfg.num_heads
+
+
+class GQAAttention(nn.Module):
+    """Grouped-query attention: ``wq``, ``wk``, ``wv``, ``wo`` and, with
+    ``qkv_bias``, ``bq``/``bk``/``bv``."""
+
+    def __init__(self, wq, wk, wv, wo, bq=None, bk=None, bv=None):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = (frozen(w) for w in (wq, wk, wv, wo))
+        if bq is not None:
+            self.bq, self.bk, self.bv = (frozen(b) for b in (bq, bk, bv))
+
+    def forward(self, x, cfg: ModelConfig, t: AttnTemporal, layer_window,
+                cache: Optional[dict]):
+        return gqa_apply(self, x, cfg, t, layer_window, cache)
+
+
+def gqa_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> GQAAttention:
+    h, kv, hd, d = _h_eff(cfg), cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    wq = dense_init(gen, d, h * hd, dtype)
+    wk = dense_init(gen, d, kv * hd, dtype)
+    wv = dense_init(gen, d, kv * hd, dtype)
+    wo = dense_init(gen, h * hd, d, dtype)
+    if h != cfg.num_heads:
+        # GQA q-heads are KV-group-contiguous: pad slots are zeroed PER GROUP
+        g_old, g_eff = cfg.num_heads // kv, h // kv
+        mask = torch.zeros((h,), dtype=torch.bool, device=wq.device)
+        for kvi in range(kv):
+            mask[kvi * g_eff: kvi * g_eff + g_old] = True
+        col = torch.repeat_interleave(mask, hd)
+        wq = torch.where(col[None, :], wq, torch.zeros_like(wq))
+        wo = torch.where(col[:, None], wo, torch.zeros_like(wo))
+    biases = ()
+    if cfg.qkv_bias:
+        biases = (zeros(h * hd, dtype, wq.device), zeros(kv * hd, dtype, wq.device),
+                  zeros(kv * hd, dtype, wq.device))
+    return GQAAttention(wq, wk, wv, wo, *biases)
+
+
+def _mask(q_pos, k_pos, window, causal: bool):
+    """(B, S_q, S_k) bool validity mask."""
+    ok = torch.ones(q_pos.shape[:1] + (q_pos.shape[1], k_pos.shape[1]),
+                    dtype=torch.bool, device=q_pos.device)
+    if causal:
+        ok &= q_pos[:, :, None] >= k_pos[:, None, :]
+    if window is not None:
+        ok &= (q_pos[:, :, None] - k_pos[:, None, :]) < window
+    return ok
+
+
+def _sdpa(q, k, v, mask, attn_softcap):
+    """q (B,S,H,hd), k/v (B,L,KV,hd) grouped attention, f32 softmax."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    q = q.reshape(b, s, kvh, g, hd)
+    logits = torch.einsum("bskgd,blkd->bkgsl", q, k).to(torch.float32) * (hd ** -0.5)
+    logits = softcap(logits, attn_softcap)
+    logits = torch.where(mask[:, None, None, :, :], logits, -1e30)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgsl,blkd->bskgd", w, v)
+    return out.reshape(b, s, h * hd)
+
+
+def gqa_apply(p: GQAAttention, x: torch.Tensor, cfg: ModelConfig, t: AttnTemporal,
+              layer_window, cache: Optional[dict]):
+    """Returns (out, new_cache); ``cache`` is None when not serving."""
+    b, s, _ = x.shape
+    h, kvh, hd = _h_eff(cfg), cfg.num_kv_heads, cfg.head_dim
+    gemm = cfg.gemm
+
+    q = matmul(x, p.wq, gemm)
+    k = matmul(x, p.wk, gemm)
+    v = matmul(x, p.wv, gemm)
+    if cfg.qkv_bias:
+        q = q + p.bq.to(q.dtype)
+        k = k + p.bk.to(k.dtype)
+        v = v + p.bv.to(v.dtype)
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kvh, hd)
+    v = v.reshape(b, s, kvh, hd)
+
+    q = apply_rope(q, t.positions, cfg.rope_theta)
+    k = apply_rope(k, t.positions, cfg.rope_theta)
+
+    if cache is None:  # training: self-attention over the sequence
+        mask = _mask(t.positions, t.positions, layer_window, causal=True)
+        out = _sdpa(q, k, v, mask, cfg.attn_softcap)
+        return matmul(out, p.wo, gemm), None
+
+    # serving: write into the cache (in place), attend over its valid prefix
+    paged = t.block_tables is not None
+    if s == 1:  # decode
+        idx = t.pos
+        per_slot = torch.is_tensor(idx) and idx.ndim == 1
+        if paged:  # per-slot depths into shared page pools
+            idx = idx.to(torch.int32)
+            paged_update(cache["k"], k, t.block_tables, idx[:, None])
+            paged_update(cache["v"], v, t.block_tables, idx[:, None])
+            k_all = paged_gather(cache["k"], t.block_tables)
+            v_all = paged_gather(cache["v"], t.block_tables)
+        elif per_slot:  # dense slot cache, per-slot depths: row scatter
+            rows = torch.arange(b, device=x.device)
+            idx = idx.long()
+            cache["k"][rows, idx] = k[:, 0]
+            cache["v"][rows, idx] = v[:, 0]
+            k_all, v_all = cache["k"], cache["v"]
+        else:  # aligned batch, shared scalar position
+            idx = int(idx)
+            cache["k"][:, idx:idx + 1] = k
+            cache["v"][:, idx:idx + 1] = v
+            k_all, v_all = cache["k"], cache["v"]
+        L = k_all.shape[1]
+        k_pos = torch.arange(L, dtype=torch.int32, device=x.device).expand(b, L)
+        valid = k_pos <= (idx[:, None] if per_slot or paged else idx)
+        mask = _mask(t.positions, k_pos, layer_window, causal=False) & valid[:, None, :]
+        out = _sdpa(q, k_all, v_all, mask, cfg.attn_softcap)
+    else:  # prefill
+        if paged:  # ragged right-padded bucket: rows own disjoint pages
+            paged_update(cache["k"], k, t.block_tables, t.positions)
+            paged_update(cache["v"], v, t.block_tables, t.positions)
+        else:
+            cache["k"][:, :s] = k
+            cache["v"][:, :s] = v
+        mask = _mask(t.positions, t.positions, layer_window, causal=True)
+        if t.lengths is not None:  # mask keys past each row's prompt
+            key_ok = (torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+                      < t.lengths[:, None])
+            mask &= key_ok[:, None, :]
+        out = _sdpa(q, k, v, mask, cfg.attn_softcap)
+    return matmul(out, p.wo, gemm), cache
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> GQAAttention:
+    if cfg.use_mla:
+        _mla_not_ported(cfg)
+    return gqa_init(gen, cfg, dtype)
+
+
+def apply_attention(p, x, cfg: ModelConfig, t: AttnTemporal, layer_window, cache):
+    if cfg.use_mla:
+        _mla_not_ported(cfg)
+    return gqa_apply(p, x, cfg, t, layer_window, cache)

@@ -57,3 +57,27 @@ def resolve_policy(policy=None, *, fallback: Optional[PrecisionPolicy] = None
     if ctx is not None:
         return ctx
     return fallback if fallback is not None else NATIVE
+
+
+def resolve_pinned_policy(configured, policy) -> PrecisionPolicy:
+    """Resolve the policy a long-lived component (the serving engines) pins
+    for its calls: explicit ``policy=``, else the component's ``configured``
+    policy (``ModelConfig.gemm``), else the context.
+
+    Model layers resolve ``configured`` per call, which outranks any context
+    the component establishes, so an explicit ``policy=`` that contradicts
+    an explicit ``configured`` could never take effect inside the model; it
+    is refused instead of splitting precision between the component (weight
+    caches) and the layers.
+    """
+    if policy is None:
+        return resolve_policy(configured)
+    pol = coerce_policy(policy)
+    if configured is not None and coerce_policy(configured) != pol:
+        raise ValueError(
+            f"policy={pol.spec!r} contradicts the configured policy "
+            f"{coerce_policy(configured).spec!r}; the model layers resolve "
+            "the configured policy per-call, so the override would not "
+            "reach them. Rebuild the config with gemm=None (resolve from "
+            "context) or with the desired policy.")
+    return pol

@@ -1,7 +1,7 @@
 """Accuracy-targeted modulus-count resolution (the torch counterpart of
 ``repro/precision/resolve.py``, numpy only like the reference; operands may
-be numpy arrays, tensors on any device, or prepared plans). The serving
-side's ``resolve_for_sketches`` comes with the serve slice.
+be numpy arrays, tensors on any device, or prepared plans), with the
+serving side's ``resolve_for_sketches`` over ``WeightSketch`` summaries.
 
 The Ozaki-II error in the condition-free metric
 
@@ -33,12 +33,27 @@ decreasing in N, so a tighter target can never select fewer moduli.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .policy import PrecisionPolicy
+
+#: Serving resolves a request's decode policy at ADMISSION, before any of its
+#: activations exist, so the activation side enters as a fixed exponent-range
+#: prior: rmsnorm'd decode activations across the smoke archs measure
+#: sigma(log2|x|) ~ 1.3-1.8 — take the upper edge, erring conservative (the
+#: estimator already carries SAFETY_BITS on top).
+DEFAULT_ACTIVATION_SPREAD_LOG2 = 1.6
+
+
+class WeightSketch(NamedTuple):
+    """Admission-time summary of one matmul weight: enough to resolve a
+    modulus count without touching the (possibly source-dropped) plan."""
+    path: str
+    contract_dim: int
+    spread_log2: float
 
 #: Calibration (docs/precision.md): bits of accuracy lost per unit of summed
 #: operand log2-spread beyond the Gaussian baseline.
@@ -158,3 +173,24 @@ def resolve_num_moduli(policy: PrecisionPolicy, a, b, target_rel_err: float, *,
         f"no {family} modulus count <= {MAX_RESOLVE_MODULI} meets "
         f"target_rel_err=2^{t_log2:.1f} at k={k}, spread={spread_log2:.1f} "
         "(operands too heavy-tailed; consider accurate mode or pre-scaling)")
+
+
+def resolve_for_sketches(policy: PrecisionPolicy,
+                         sketches: Iterable[WeightSketch],
+                         target_rel_err: float, *,
+                         activation_spread_log2: Optional[float] = None) -> int:
+    """Per-request serving resolution: the smallest ``num_moduli`` predicted
+    to meet ``target_rel_err`` on EVERY cached weight sketch (the worst
+    layer's contraction length x exponent spread wins), with the activation
+    side entering as a prior (:data:`DEFAULT_ACTIVATION_SPREAD_LOG2`) since
+    the request's activations do not exist at admission time. Monotone in
+    the target, so tighter accuracy classes never select fewer moduli."""
+    act = (DEFAULT_ACTIVATION_SPREAD_LOG2 if activation_spread_log2 is None
+           else float(activation_spread_log2))
+    sketches = tuple(sketches)
+    if not sketches:
+        raise ValueError("resolve_for_sketches needs at least one WeightSketch")
+    return max(
+        resolve_num_moduli(policy, None, None, target_rel_err,
+                           k=sk.contract_dim, spread_log2=sk.spread_log2 + act)
+        for sk in sketches)

@@ -3,8 +3,10 @@ prologue raw_parts, K2 ozmm_fused_parts with its B transpose, the wgmma
 probe of their GEMM core, and the phase-split pipeline's K3 fp8_gemm, K4
 int8_gemm, K5 requant_garner in its digits and f64 modes, K6
 quant_residues with its frame and f64 entries) against their plain
-versions on the card, bitwise; and accurate scaling's bound GEMM under the
-global TF32 switch. Every test here is marked ``cuda`` and
+versions on the card, bitwise; accurate scaling's bound GEMM under the
+global TF32 switch; and the serving path: K2 on a cached weight plan at a
+decode batch's few rows, and the smoke engine on the kernel routes against
+'+core'. Every test here is marked ``cuda`` and
 skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -624,3 +626,66 @@ def test_bound_gemm_probe_on_card_equals_cpu(monkeypatch):
     want = health.bound_gemm_probe(a, b, device="cpu")
     assert devices == ["cuda", "cpu"]
     assert abs(got - want) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 8])
+def test_k2_on_cached_weight_at_decode_rows(m):
+    """K2 on a cached (source-dropped) fast-mode weight plan at a decode
+    batch's few rows, padded to the kernel's tile, against its plain
+    version; and layers.matmul on that plan, auto (K2) against '+core'."""
+    _need_card()
+    from repro_torch.core.plan import quantize_matrix
+    from repro_torch.kernels import stack_parts
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(30 + m)
+    ms = parse_policy("ozaki2-fp8/fast").moduli_set()
+    w = torch.from_numpy(rng.standard_normal((384, 520)) * 384 ** -0.5).cuda()
+    qw = quantize_matrix(w, "rhs", ms, mode="fast").drop_source()
+    x = torch.from_numpy(rng.standard_normal((m, 384))).cuda()
+    qx = quantize_matrix(x, "lhs", ms, mode="fast")
+    args = fused.fused_parts_args(stack_parts(qx.parts, ms), qx.lscale, stack_parts(qw.parts, ms),
+                                  qw.lscale, ms, fused.KERNEL_TILE)
+    launches = fused.ozmm_fused_parts.launches
+    got = fused.ozmm_fused_parts(*args, ms=ms)
+    assert fused.ozmm_fused_parts.launches == launches + 1
+    assert torch.equal(got, fused.ozmm_fused_parts_ref(*args, ms=ms))
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(layers.matmul(xb, qw, "ozaki2-fp8/fast"),
+                       layers.matmul(xb, qw, "ozaki2-fp8/fast+core"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["ozaki2-fp8/fast", "ozaki2-fp8/fast+unfused",
+                                  "ozaki2-int8/fast+unfused"])
+def test_smoke_engine_on_card_equals_core(spec):
+    """The serving engine on the qwen2-7b smoke config on the card: the
+    kernel route's tokens and every emitted logits row equal the '+core'
+    route's, bitwise."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serve import BatchingEngine
+
+    model = Model(get_config("qwen2-7b", "smoke"), device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    prompts = [[3, 14, 15, 92, 65], [35, 89, 79, 32, 38, 46, 26], [43, 38, 32, 79]]
+    pol = parse_policy(spec)
+
+    def run(policy):
+        eng = BatchingEngine(model, params, max_len=12, max_slots=2, page_size=4, policy=policy)
+        rows, emit = [], eng._emit
+        eng._emit = lambda slot, row: (rows.append(row.clone()), emit(slot, row))[1]
+        rids = [eng.submit(p, max_new_tokens=3) for p in prompts]
+        res = eng.run()
+        return [res[r].tokens for r in rids], rows
+
+    toks, rows = run(pol)
+    toks_c, rows_c = run(dataclasses.replace(pol, backend="core", fused=True))
+    assert toks == toks_c and len(rows) == len(rows_c) == 9
+    assert all(torch.equal(a, b) for a, b in zip(rows, rows_c))

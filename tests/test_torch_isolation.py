@@ -33,7 +33,9 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.kernels.pipeline, "
             "repro_torch.linalg, repro_torch.precision.resolve, repro_torch.obs, "
             "repro_torch.obs.metrics, repro_torch.obs.trace, repro_torch.obs.export, "
-            "repro_torch.obs.health, repro_torch.core.ozaki1, repro_torch.core.perf_model; "
+            "repro_torch.obs.health, repro_torch.core.ozaki1, repro_torch.core.perf_model, "
+            "repro_torch.models, repro_torch.configs, repro_torch.serve, "
+            "repro_torch.serve.batching; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
     env = {**os.environ, "PYTHONPATH": str(PORT.parent)}
