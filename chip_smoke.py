@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                          # from the root of a checkout
     python3 chip_smoke.py --size 2048 --hpl-n 1024  # a quick first call
-    python3 chip_smoke.py --serve-layers 1          # phase 10 at depth 1
+    python3 chip_smoke.py --serve-layers 2          # phase 10 at depth 2
 
 Phases, each printing its elapsed time; any failed check raises and the
 script exits non-zero without printing a result:
@@ -118,7 +118,8 @@ script exits non-zero without printing a result:
 10. serving (repro_torch.models + repro_torch.serve): qwen2-7b at its
    published width (d_model 3584, 28/4 heads x 128, d_ff 18944, vocab
    152064, QKV bias, bf16 compute, f32 weights from the seed), depth cut to
-   --serve-layers (default 2 of 28), through BatchingEngine(policy
+   --serve-layers (default 1 of 28: with phase 11 the run passed ~480 s
+   at 2), through BatchingEngine(policy
    "ozaki2-fp8/fast", 4 slots, pages of 16): the weights quantized once
    into the WeightResidueCache (timed; its nbytes), then 4 greedy requests
    with prompts of 17, 32, 48 and 64 seeded tokens and 8 new tokens each.
@@ -144,6 +145,36 @@ script exits non-zero without printing a result:
    each kernel's launches as predicted a GEMM call; and two requests of
    accuracy classes "relaxed" and "fp64" served by two policy groups with
    ordered moduli.
+11. the other model families (repro_torch.models' MoE, MLA, Mamba2, zamba2,
+   encoder-decoder and vlm), phase 10's model freed first. (a)
+   moonshot-v1-16b-a3b at its published widths (d_model 2048, 16/16 heads x
+   128, 64 experts top-6 of d_ff 1408 + 1 shared, dense first layer d_ff
+   11264, vocab 163840), cut to 3 of 48 layers (the dense layer and two MoE
+   layers), and (b) mamba2-2.7b at its published widths (d_model 2560,
+   state 128, 80 heads x 64, chunk 128, tied embeddings), cut to 2 of 64
+   layers; each with f32 weights from the seed and bf16 compute, through
+   BatchingEngine("ozaki2-fp8/fast", 4 slots; paged with pages of 16 for
+   MoE, slot-pooled for the SSM) on phase 10's 4 requests. Checks: the plans
+   and every launch count as family_gemms reckons them from the config (K2
+   and its transpose once a cached GEMM; mamba2's tied lm_head is raw, as in
+   the reference's cache: K1 and 2 prologues a call); K2 and K1 at the first
+   call of every distinct input shape bitwise against their plain versions;
+   the first prefill's and decode step's logits equal "+core" bitwise;
+   requests 0 and 3 alone through ServeEngine give the batch's tokens (MoE
+   under moe_dropless=True: capacity dispatch follows the bucket's length),
+   logits bitwise or else within 1e-5 of max|logit|, and a probe of
+   whether the routed experts' bf16 einsum gives a row the same bits at
+   another row count. Reported as phase 10's (quantization s, plans and
+   nbytes, peak GB, TTFT, decode ms, tokens/s beside native), a decode
+   step split by CUDA events (the routed experts and the SSM's
+   conv/SSD/norm apart from the emulated GEMMs), and K2 at moonshot's
+   lm_head decode shape (4 x 2048 x 163840). (c) the smoke widths of
+   deepseek-v3 (MLA + MoE, paged latent cache), moonshot, mamba2, zamba2
+   (shared block), seamless-m4t (encoder memory of audio frames,
+   cross-attention; Model.init_cache / prefill / decode_step) and internvl2
+   (patch embeddings; the same) under ozaki2-fp8/fast and each policy of
+   phase 10's smoke width: tokens and logits bitwise equal to the '+core'
+   twin, each kernel's launches as predicted.
 
 The last two lines are the card (nvidia-smi name, power limit) and
 {"ok": true, "device": {...}}; before them a {"kernels": [...]} line.
@@ -1239,6 +1270,84 @@ class ServeRecorder:
         cls.prefill_slots, cls.decode_slots, cls.prefill = self.orig
 
 
+def timed_run(engine, prompts) -> dict:
+    """The requests of ``prompts`` (SERVE_NEW_TOKENS each) through ``engine``,
+    each engine step timed by the host clock up to a synchronize: TTFT, the
+    first step (prefill waves and the first decode), the median decode
+    step, tokens/s and the tokens."""
+    import torch
+
+    rids = [engine.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+    step_ms = []
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    while len(engine.scheduler) or any(g.num_active for g in engine._groups.values()):
+        ts = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    total = time.perf_counter() - t_run
+    res = engine.results
+    return {"ttft_ms": [res[r].ttft * 1e3 for r in rids],
+            "first_step_ms": step_ms[0],
+            "decode_ms": statistics.median(step_ms[1:]), "steps": len(step_ms),
+            "tokens_per_s": len(rids) * SERVE_NEW_TOKENS / total, "seconds": total,
+            "tokens": [res[r].tokens for r in rids]}
+
+
+def k2_lm_head_row(qb, w, m: int, gen, dev, launches: int) -> dict:
+    """The kernels line's row of K2 at a serving run's decode shape of
+    lm_head: ``m`` rows (padded to the kernel's tile) times the cached plan
+    ``qb`` of the weight ``w`` (d_model, padded vocab), bitwise against its
+    plain version, timed (median of 5 after a warm-up) beside its plain
+    version, its bound, cuBLAS DGEMM and its products through
+    torch._scaled_mm."""
+    import torch
+
+    from repro_torch.core.plan import quantize_matrix
+    from repro_torch.kernels import stack_parts
+    from repro_torch.kernels.fused import (KERNEL_TILE, fused_parts_args, ozmm_fused_parts,
+                                           ozmm_fused_parts_ref, transpose_parts)
+    from repro_torch.precision import parse_policy
+
+    ms_set = parse_policy(SERVE_POLICY).moduli_set()
+    k, n = w.shape
+    x_dec = torch.randn((m, k), generator=gen, device=dev, dtype=torch.float64)
+    qa = quantize_matrix(x_dec, "lhs", ms_set, mode="fast")
+    fa = fused_parts_args(stack_parts(qa.parts, ms_set), qa.lscale,
+                          stack_parts(qb.parts, ms_set), qb.lscale, ms_set, KERNEL_TILE)
+    got = ozmm_fused_parts(*fa, ms=ms_set)
+    plain = ozmm_fused_parts_ref(*fa, ms=ms_set)
+    max_err = (got - plain).abs().max().item()
+    del got, plain
+    ms_k2 = cuda_ms(lambda: ozmm_fused_parts(*fa, ms=ms_set))
+    ms_plain = cuda_ms(lambda: ozmm_fused_parts_ref(*fa, ms=ms_set), 3)
+    pbk = transpose_parts(fa[1], ms=ms_set)
+    ms_products = cuda_ms(library_products(fa[0], pbk, fa[1], ms_set))
+    del pbk, fa
+    torch.cuda.empty_cache()
+    w64 = w.to(torch.float64)
+    ms_dgemm = cuda_ms(lambda: torch.matmul(x_dec, w64))
+    del w64
+    t_ops = 3 * ms_set.n * 2 * m * k * n / H100_FP8_OPS_PER_S * 1e3
+    t_bytes = part_bytes(ms_set, m, k, n) / H100_BYTES_PER_S * 1e3
+    row = {"name": "ozmm_fused_parts", "policy": SERVE_POLICY, "shape": [m, k, n],
+           "padded_m": KERNEL_TILE[0], "route": "cuda",
+           "source": "src/repro_torch/csrc/fused_parts.cu",
+           "replaces": "src/repro/kernels/fused/kernel.py:265",
+           "launches": launches, "max_abs_err": max_err, "ms": ms_k2,
+           "plain_ms": ms_plain, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "bytes" if t_bytes > t_ops else "operations",
+           "library_ms": ms_dgemm, "products_library_ms": ms_products}
+    check(max_err == 0.0, f"K2 at the lm_head decode shape {m}x{k}x{n} differs from its "
+                          "plain version")
+    print(f"  K2 at lm_head's decode shape {m}x{k}x{n} (m padded to {KERNEL_TILE[0]}): "
+          f"{ms_k2:.2f} ms, plain {ms_plain:.2f} ms, bound {max(t_ops, t_bytes):.2f} ms "
+          f"({row['bound_by']}), cuBLAS DGEMM {ms_dgemm:.2f} ms, its {3 * ms_set.n} products "
+          f"through torch._scaled_mm {ms_products:.2f} ms", flush=True)
+    return row
+
+
 def serve_phase(args, dev) -> dict:
     """Phase 10 (module docstring): qwen2-7b at its published width through
     repro_torch.serve on the card, then the smoke width under the other
@@ -1251,11 +1360,7 @@ def serve_phase(args, dev) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.core import gemm
-    from repro_torch.core.plan import quantize_matrix
-    from repro_torch.kernels import stack_parts
-    from repro_torch.kernels.fused import (KERNEL_TILE, fused_parts_args, ops,
-                                           ozmm_fused_parts, ozmm_fused_parts_ref,
-                                           transpose_parts)
+    from repro_torch.kernels.fused import ops, ozmm_fused_parts_ref
     from repro_torch.kernels.fused import kernel as fused_kernel
     from repro_torch.models import Model
     from repro_torch.models import attention as attn_mod
@@ -1324,25 +1429,7 @@ def serve_phase(args, dev) -> dict:
     print(f"  tokens: {[tokens[i] for i in range(len(prompts))]}", flush=True)
 
     # -- the timed run (warm cache, same requests) ---------------------------
-    def timed_run(engine):
-        rids = [engine.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
-        step_ms = []
-        torch.cuda.synchronize()
-        t_run = time.perf_counter()
-        while len(engine.scheduler) or any(g.num_active for g in engine._groups.values()):
-            ts = time.perf_counter()
-            engine.step()
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - ts) * 1e3)
-        total = time.perf_counter() - t_run
-        res = engine.results
-        return {"ttft_ms": [res[r].ttft * 1e3 for r in rids],
-                "first_step_ms": step_ms[0],
-                "decode_ms": statistics.median(step_ms[1:]), "steps": len(step_ms),
-                "tokens_per_s": len(rids) * SERVE_NEW_TOKENS / total, "seconds": total,
-                "tokens": [res[r].tokens for r in rids]}
-
-    fast = timed_run(eng)
+    fast = timed_run(eng, prompts)
     check(fast["tokens"] == [tokens[i] for i in range(len(prompts))],
           "the timed run's tokens differ from the checked run's")
 
@@ -1380,42 +1467,8 @@ def serve_phase(args, dev) -> dict:
     eng.run()
 
     # -- K2 at the decode shape of lm_head, timed beside its yardsticks ------
-    ms_set = parse_policy(SERVE_POLICY).moduli_set()
-    x_dec = torch.randn((len(prompts), cfg.d_model), generator=gen, device=dev,
-                        dtype=torch.float64)
-    qa = quantize_matrix(x_dec, "lhs", ms_set, mode="fast")
-    qb = eng._base_group.serve_params.lm_head
-    fa = fused_parts_args(stack_parts(qa.parts, ms_set), qa.lscale,
-                          stack_parts(qb.parts, ms_set), qb.lscale, ms_set, KERNEL_TILE)
-    m, k, n = len(prompts), cfg.d_model, cfg.padded_vocab
-    got = ozmm_fused_parts(*fa, ms=ms_set)
-    plain = ozmm_fused_parts_ref(*fa, ms=ms_set)
-    max_err = (got - plain).abs().max().item()
-    del got, plain
-    ms_k2 = cuda_ms(lambda: ozmm_fused_parts(*fa, ms=ms_set))
-    ms_plain = cuda_ms(lambda: ozmm_fused_parts_ref(*fa, ms=ms_set), 3)
-    pbk = transpose_parts(fa[1], ms=ms_set)
-    ms_products = cuda_ms(library_products(fa[0], pbk, fa[1], ms_set))
-    del pbk, fa
-    torch.cuda.empty_cache()
-    w64 = params.lm_head.to(torch.float64)
-    ms_dgemm = cuda_ms(lambda: torch.matmul(x_dec, w64))
-    del w64
-    t_ops = 3 * ms_set.n * 2 * m * k * n / H100_FP8_OPS_PER_S * 1e3
-    t_bytes = part_bytes(ms_set, m, k, n) / H100_BYTES_PER_S * 1e3
-    k2_row = {"name": "ozmm_fused_parts", "policy": SERVE_POLICY, "shape": [m, k, n],
-              "padded_m": KERNEL_TILE[0], "route": "cuda",
-              "source": "src/repro_torch/csrc/fused_parts.cu",
-              "replaces": "src/repro/kernels/fused/kernel.py:265",
-              "launches": counts["K2"], "max_abs_err": max_err, "ms": ms_k2,
-              "plain_ms": ms_plain, "bound_ms": max(t_ops, t_bytes),
-              "bound_by": "bytes" if t_bytes > t_ops else "operations",
-              "library_ms": ms_dgemm, "products_library_ms": ms_products}
-    check(max_err == 0.0, "serve K2 at the lm_head decode shape differs from its plain version")
-    print(f"  K2 at lm_head's decode shape {m}x{k}x{n} (m padded to {KERNEL_TILE[0]}): "
-          f"{ms_k2:.2f} ms, plain {ms_plain:.2f} ms, bound {max(t_ops, t_bytes):.2f} ms "
-          f"({k2_row['bound_by']}), cuBLAS DGEMM {ms_dgemm:.2f} ms, its {3 * ms_set.n} products "
-          f"through torch._scaled_mm {ms_products:.2f} ms", flush=True)
+    k2_row = k2_lm_head_row(eng._base_group.serve_params.lm_head, params.lm_head, len(prompts),
+                            gen, dev, counts["K2"])
 
     # -- auto vs +core: the first prefill and decode step, bitwise -----------
     core_pol = dataclasses.replace(parse_policy(SERVE_POLICY), backend="core")
@@ -1430,7 +1483,7 @@ def serve_phase(args, dev) -> dict:
             check_equal(batch_rows[i][j], row, f"request {i} token {j}: auto vs +core logits")
     print(f"  auto == {core_pol.spec} logits, first prefill and first decode step, all "
           f"{len(prompts)} requests (bitwise)", flush=True)
-    del core_eng, eng, wcache, qb
+    del core_eng, eng, wcache
     torch.cuda.empty_cache()
 
     # -- two requests alone through ServeEngine: batch == alone, bitwise -----
@@ -1450,7 +1503,7 @@ def serve_phase(args, dev) -> dict:
     torch.cuda.empty_cache()
 
     # -- the yardstick: the same engine under native (bf16 torch.matmul) -----
-    nat = timed_run(BatchingEngine(model, params, policy="native", **engine_kw))
+    nat = timed_run(BatchingEngine(model, params, policy="native", **engine_kw), prompts)
     print(f"  timed run, {len(prompts)} requests x {SERVE_NEW_TOKENS} tokens: " + "; ".join(
         f"{name}: TTFT {', '.join(f'{t:.1f}' for t in r['ttft_ms'])} ms, first step "
         f"{r['first_step_ms']:.1f} ms, decode {r['decode_ms']:.2f} ms a step (median of "
@@ -1539,14 +1592,416 @@ def serve_smoke_width(args, dev) -> dict:
     return {"launches": launches, "accuracy_groups": specs}
 
 
+#: Phase 11: the other model families. moonshot-v1-16b-a3b (MoE) and
+#: mamba2-2.7b (SSM) at their published widths, depth cut to the layers
+#: below; then the smoke widths of the six configs of the families.
+FAMILY_FULL = (("moonshot-v1-16b-a3b", 3), ("mamba2-2.7b", 2))
+FAMILY_ARCHS = ("deepseek-v3-671b", "moonshot-v1-16b-a3b", "mamba2-2.7b", "zamba2-1.2b",
+                "seamless-m4t-medium", "internvl2-26b")
+#: Logits of runs that need not be bitwise (the tests' LOGIT_RTOL): |a - b|
+#: <= LOGIT_RTOL * max|b|.
+LOGIT_RTOL = 1e-5
+#: Launches of one emulated GEMM by policy: on a cached weight plan (fast: K2
+#: and its transpose; the others as SERVE_SMOKE_POLICIES), and on a raw
+#: operand, the lm_head tied to the embeddings, which the weight cache leaves
+#: alone as the reference's does.
+CACHED_LAUNCHES = {SERVE_POLICY: lambda n: {"K2": 1, "K2 transpose": 1}, **SERVE_SMOKE_POLICIES}
+RAW_LAUNCHES = {
+    SERVE_POLICY: lambda n: {"K1": 1, "K1 prologue": 2},
+    "ozaki2-fp8/accurate": lambda n: {"K1": 1, "K1 prologue": 2},
+    "ozaki2-fp8/fast+unfused": lambda n: {"K6": 2, "K3": 3 * n, "K5": 1},
+    "ozaki2-fp8/accurate+unfused": lambda n: {"K6": 2, "K3": 3 * n, "K5": 1},
+    "ozaki2-int8/fast+unfused": lambda n: {"K6": 2, "K4": n, "K5": 1},
+}
+
+
+def family_gemms(cfg) -> tuple[int, int]:
+    """(GEMMs on cached plans, GEMMs on a raw operand) of one model call on
+    tokens (a prefill wave or a decode step), reckoned from the config: an
+    attention 4 (MLA: w_dq + w_uq or w_q, w_dkv, wo), an MLP 3 (2 ungated),
+    an MoE layer's router and shared expert (its routed experts are
+    einsums), a Mamba2 layer's in_proj and out_proj, zamba2's shared block
+    once a group, a decoder layer's self- and cross-attention, and lm_head
+    (raw when tied to the embeddings)."""
+    attn = ((2 if cfg.q_lora_rank else 1) + 2) if cfg.use_mla else 4
+    mlp = 3 if cfg.gated_mlp else 2
+    n = cfg.num_layers
+    if cfg.family == "ssm":
+        layers = 2 * n
+    elif cfg.family == "hybrid":
+        layers = 2 * n + n // cfg.shared_attn_every * (attn + mlp)
+    elif cfg.family == "moe":
+        moe = 1 + 3 * bool(cfg.num_shared_experts)
+        dense = cfg.first_dense_layers
+        layers = dense * (attn + mlp) + (n - dense) * (attn + moe)
+    elif cfg.family == "encdec":
+        layers = n * (2 * attn + mlp)
+    else:
+        layers = n * (attn + mlp)
+    return layers + (not cfg.tie_embeddings), int(cfg.tie_embeddings)
+
+
+def predicted_launches(spec: str, n_moduli: int, cached: int, raw: int, counts: dict) -> dict:
+    """The launch counts ``cached`` GEMMs on cached plans and ``raw`` on raw
+    operands make under ``spec``, over the counters of ``counts``."""
+    want = {k: 0 for k in counts}
+    for table, gemms in ((CACHED_LAUNCHES, cached), (RAW_LAUNCHES, raw)):
+        for k, v in table[spec](n_moduli).items():
+            want[k] += v * gemms
+    return want
+
+
+def compare_rows(a: list, b: list, what: str) -> bool:
+    """Logits rows of two runs: bitwise (returns True), or else within
+    LOGIT_RTOL of max|b| (returns False); fails beyond that."""
+    import torch
+
+    bitwise = True
+    for j, (x, y) in enumerate(zip(a, b)):
+        if not torch.equal(x, y):
+            bitwise = False
+            err = (x - y).abs().max().item()
+            check(err <= LOGIT_RTOL * y.abs().max().item(),
+                  f"{what} token {j}: max |difference| {err}")
+    return bitwise
+
+
+def expert_einsum_row_probe(w, d: int, dev) -> dict:
+    """Whether the routed experts' bf16 einsum gives a row the same bits at
+    another row count (the dropless prefill's 256 rows against 17, and a
+    decode batch's 4 against 1), on the layer's own expert stack ``w``."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    x = torch.randn((256, d), generator=gen, device=dev).to(torch.bfloat16)
+    wb = w.to(torch.bfloat16)
+    full = torch.einsum("td,edf->tef", x, wb)
+    return {"256 vs 17 rows": torch.equal(full[:17], torch.einsum("td,edf->tef", x[:17], wb)),
+            "4 vs 1 rows": torch.equal(full[:1], torch.einsum("td,edf->tef", x[:1], wb))
+            and torch.equal(torch.einsum("td,edf->tef", x[:4], wb)[:1], full[:1])}
+
+
+def family_full_width(args, dev, arch: str, layers: int) -> dict:
+    """Phase 11 (a)/(b) (module docstring): ``arch`` at its published widths,
+    ``layers`` deep, served by the BatchingEngine under ozaki2-fp8/fast.
+    Returns the run's numbers (and, for an untied lm_head, the kernels
+    line's K2 row at its decode shape)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import gemm
+    from repro_torch.kernels.fused import ops, ozmm_fused_parts_ref, ozmm_fused_raw_ref
+    from repro_torch.kernels.fused import kernel as fused_kernel
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import blocks as blocks_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.precision import parse_policy
+    from repro_torch.serve import BatchingEngine, RequestStatus, ServeEngine
+
+    get_counts, zero_counts = serve_counters()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(arch, "full")
+    cfg = dataclasses.replace(full, num_layers=layers)
+    model = Model(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    params = model.init(gen)
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in SERVE_PROMPTS]
+    max_len = -(-(max(SERVE_PROMPTS) + SERVE_NEW_TOKENS) // SERVE_PAGE) * SERVE_PAGE
+    engine_kw = dict(max_len=max_len, max_slots=len(prompts), page_size=SERVE_PAGE)
+    paged = cfg.family in ("dense", "moe")
+    cached, raw = family_gemms(cfg)
+    n_moduli = parse_policy(SERVE_POLICY).moduli_set().n
+    if cfg.family == "moe":
+        widths = (f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
+                  f"{cfg.head_dim}, {cfg.num_experts} experts top-{cfg.experts_per_token} of "
+                  f"d_ff {cfg.moe_d_ff} + {cfg.num_shared_experts} shared, dense first layer "
+                  f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {layers} of {full.num_layers} layers "
+                  f"({cfg.first_dense_layers} dense + {layers - cfg.first_dense_layers} MoE)")
+    else:
+        widths = (f"d_model {cfg.d_model}, d_inner {cfg.d_inner}, state {cfg.ssm_state}, "
+                  f"{cfg.ssm_heads} heads x {cfg.ssm_head_dim}, chunk {cfg.ssm_chunk}, vocab "
+                  f"{cfg.vocab_size}, tied embeddings; {layers} of {full.num_layers} layers")
+    print(f"  {cfg.name} ({cfg.family}): {widths}; bf16 compute, f32 weights from the seed, "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} G elements; "
+          f"{'paged' if paged else 'slot-pooled'} BatchingEngine", flush=True)
+
+    # -- quantize the weights once, through the engine's cache --------------
+    torch.cuda.synchronize()
+    tq = time.perf_counter()
+    eng = BatchingEngine(model, params, policy=SERVE_POLICY, **engine_kw)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - tq
+    wcache = eng._base_group.weight_cache
+    check(len(wcache) == cached, f"{arch}: {len(wcache)} plans, predicted {cached}")
+    cache_gb = wcache.nbytes() / 1e9
+    print(f"  quantization {quant_s:.2f} s, {len(wcache)} plans, WeightResidueCache.nbytes() "
+          f"{cache_gb:.3f} GB", flush=True)
+
+    # -- the checked run: launches, each K1/K2 shape vs its plain version ----
+    zero_counts()
+    with ServeRecorder(eng) as rec, CheckFirstCallPerShape(
+            ops, "ozmm_fused_parts", ozmm_fused_parts_ref, f"{arch} K2 vs plain version") as k2c, \
+            CheckFirstCallPerShape(ops, "ozmm_fused_raw", ozmm_fused_raw_ref,
+                                   f"{arch} K1 vs plain version") as k1c:
+        rids = [eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+        results = eng.run()
+        torch.cuda.synchronize()
+    counts = get_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for rid in rids:
+        r = results[rid]
+        check(r.status is RequestStatus.FINISHED and len(r.tokens) == SERVE_NEW_TOKENS
+              and all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"{arch} request {rid}: {r.status}, tokens {r.tokens}")
+    # paged: one ragged prefill wave; slot-pooled: one exact-length prefill a request
+    want_calls = (1 if paged else len(prompts), SERVE_NEW_TOKENS - 1)
+    check((rec.waves, rec.steps) == want_calls,
+          f"{arch}: (prefill calls, decode steps) {(rec.waves, rec.steps)}, predicted {want_calls}")
+    calls = rec.waves + rec.steps
+    want = predicted_launches(SERVE_POLICY, n_moduli, cached * calls, raw * calls, counts)
+    check(counts == want, f"{arch}: launches {counts}, predicted {want}")
+    batch_rows = [rec.rows[rid] for rid in rids]
+    tokens = [results[rid].tokens for rid in rids]
+    print(f"  checked run: {len(rids)} requests x {SERVE_NEW_TOKENS} tokens, {rec.waves} prefill "
+          f"calls + {rec.steps} decode steps; launches {({k: v for k, v in counts.items() if v})} "
+          f"= ({cached} cached + {raw} raw GEMMs) x {calls} as predicted; K2 at "
+          f"{len(k2c.shapes)} and K1 at {len(k1c.shapes)} distinct input shapes == plain "
+          f"version (bitwise); peak memory {peak_gb:.2f} GB", flush=True)
+    print(f"  tokens: {tokens}", flush=True)
+
+    # -- the timed run (warm cache, same requests) ---------------------------
+    fast = timed_run(eng, prompts)
+    check(fast["tokens"] == tokens, f"{arch}: the timed run's tokens differ from the checked run's")
+
+    # -- one decode step split by CUDA events --------------------------------
+    for p in prompts:
+        eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
+    eng.step()  # the prefill and the first decode step
+    torch.cuda.synchronize()
+    with CallTotals(fused_kernel, "gemm_core") as t_core, \
+            CallTotals(fused_kernel, "transpose_parts") as t_tr, \
+            CallTotals(ops, "stack_parts") as t_stack, CallTotals(ops, "_pad3") as t_pad, \
+            CallTotals(ops, "decompose_raw") as t_raw, \
+            CallTotals(fused_kernel, "raw_parts") as t_pro, \
+            CallTotals(gemm, "quantize_matrix") as t_qa, \
+            CallTotals(ops, "pair_exponents") as t_pe, \
+            CallTotals(attn_mod, "_sdpa") as t_sdpa, \
+            CallTotals(attn_mod, "paged_update") as t_pu, \
+            CallTotals(attn_mod, "paged_gather") as t_pg, \
+            CallTotals(blocks_mod, "moe_apply") as t_moe, \
+            CallTotals(moe_mod, "_router_probs") as t_router, \
+            CallTotals(moe_mod, "mlp_apply") as t_shared, \
+            CallTotals(blocks_mod, "mamba2_apply") as t_mamba, \
+            CallTotals(ssm_mod, "matmul") as t_proj:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        eng.step()
+        end.record()
+        torch.cuda.synchronize()
+    step_total = start.elapsed_time(end)
+    ms = lambda *ts: sum(t.seconds() for t in ts) * 1e3
+    split = {"K1/K2 core": ms(t_core),
+             "weight parts: stack_parts + _pad3 + transpose_parts": ms(t_stack, t_pad, t_tr),
+             "raw lm_head: decompose_raw + K1 prologue": ms(t_raw, t_pro),
+             "activation quantization: quantize_matrix + pair_exponents": ms(t_qa, t_pe),
+             "attention: _sdpa + paged_update + paged_gather": ms(t_sdpa, t_pu, t_pg),
+             "routed experts: moe_apply less its router and shared-expert GEMMs":
+                 ms(t_moe) - ms(t_router, t_shared),
+             "SSM: mamba2_apply less in_proj/out_proj (conv, SSD step, gated norm)":
+                 ms(t_mamba) - ms(t_proj)}
+    split["rest"] = step_total - sum(split.values())
+    fast["decode_step_split_ms"] = {"step": step_total, **split}
+    print(f"  decode step {step_total:.2f} ms (CUDA events): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items() if v), flush=True)
+    eng.run()
+
+    out = {"config": cfg.name, "layers": layers, "policy": SERVE_POLICY, "plans": len(wcache),
+           "quantization_s": quant_s, "weight_cache_gb": cache_gb, "peak_gb": peak_gb,
+           "launches": {k: v for k, v in counts.items() if v}, "fast": fast}
+    if not cfg.tie_embeddings:  # K2 at lm_head's decode shape, timed
+        out["k2_row"] = k2_lm_head_row(eng._base_group.serve_params.lm_head, params.lm_head,
+                                       len(prompts), gen, dev, counts["K2"])
+
+    # -- auto vs +core: the first prefill and decode step, bitwise -----------
+    core_pol = dataclasses.replace(parse_policy(SERVE_POLICY), backend="core")
+    core_eng = BatchingEngine(model, params, policy=core_pol, weight_cache=wcache, **engine_kw)
+    zero_counts()
+    with ServeRecorder(core_eng) as core_rec:
+        core_rids = [core_eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+        core_eng.step()  # the prefill and the first decode step
+    check(all(v == 0 for v in get_counts().values()), f"{arch}: the +core engine launched a kernel")
+    for i, rid in enumerate(core_rids):
+        for j, row in enumerate(core_rec.rows[rid]):
+            check_equal(batch_rows[i][j], row, f"{arch} request {i} token {j}: auto vs +core")
+    print(f"  auto == {core_pol.spec}: tokens and logits of the prefill and first decode step, "
+          f"all {len(prompts)} requests (bitwise)", flush=True)
+    del core_eng, eng, wcache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- batch == alone (MoE: dropless; capacity follows the bucket) ---------
+    alone_cfg = dataclasses.replace(cfg, moe_dropless=True) if cfg.num_experts else cfg
+    alone_model = Model(alone_cfg, device=dev)
+    se = ServeEngine(alone_model, params, max_len=max_len, policy=SERVE_POLICY)
+    beng = BatchingEngine(alone_model, params, policy=SERVE_POLICY,
+                          weight_cache=se.weight_cache, **engine_kw)
+    with ServeRecorder(beng) as brec:
+        brids = [beng.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+        bres = beng.run()
+    del beng
+    bitwise = {}
+    for i in (0, len(prompts) - 1):
+        with ServeRecorder(se._engine_for(1)) as alone:
+            got = se.generate({"tokens": torch.tensor([prompts[i]])}, steps=SERVE_NEW_TOKENS)
+        check(got[0].tolist() == bres[brids[i]].tokens,
+              f"{arch} request {i}: alone {got[0].tolist()} vs batch {bres[brids[i]].tokens}")
+        (rows,) = alone.rows.values()
+        bitwise[i] = compare_rows(rows, brec.rows[brids[i]], f"{arch} request {i} alone vs batch")
+    out["batch_vs_alone"] = {"config": "moe_dropless" if cfg.num_experts else "as published",
+                             "tokens_equal": True, "logits_bitwise": bitwise}
+    print(f"  requests 0 and {len(prompts) - 1} alone through ServeEngine == in the batch "
+          f"({out['batch_vs_alone']['config']}): tokens equal, logits bitwise {bitwise} "
+          f"(else within {LOGIT_RTOL} of max|logit|)", flush=True)
+    if cfg.num_experts:
+        probe = expert_einsum_row_probe(params.stages[1][0].moe.w_gate, cfg.d_model, dev)
+        out["expert_einsum_row_invariant"] = probe
+        print(f"  routed-expert bf16 einsum, a row's bits at another row count: {probe}",
+              flush=True)
+    del se, alone_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the yardstick: the same engine under native (bf16 torch.matmul) -----
+    out["native"] = timed_run(BatchingEngine(model, params, policy="native", **engine_kw), prompts)
+    print(f"  timed run, {len(prompts)} requests x {SERVE_NEW_TOKENS} tokens: " + "; ".join(
+        f"{name}: TTFT {', '.join(f'{t:.1f}' for t in r['ttft_ms'])} ms, first step "
+        f"{r['first_step_ms']:.1f} ms, decode {r['decode_ms']:.2f} ms a step (median of "
+        f"{r['steps'] - 1}), {r['tokens_per_s']:.1f} tokens/s"
+        for name, r in (("fast", fast), ("native", out["native"]))), flush=True)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def families_smoke_width(args, dev) -> dict:
+    """Phase 11 (c): the smoke widths of the six configs under ozaki2-fp8/fast
+    and each policy of SERVE_SMOKE_POLICIES against their '+core' twins
+    (tokens and logits bitwise), each kernel's launches as predicted. The
+    token-only families through the BatchingEngine (paged or slot-pooled),
+    seamless-m4t (audio frames) and internvl2 (patch embeddings) through
+    Model.init_cache / prefill / decode_step. Returns the launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.precision import parse_policy
+    from repro_torch.serve import BatchingEngine, RequestStatus, quantize_params
+
+    get_counts, zero_counts = serve_counters()
+    launches = {}
+    for a, arch in enumerate(FAMILY_ARCHS):
+        cfg = get_config(arch, "smoke")
+        model = Model(cfg, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 2 + a)
+        params = model.init(gen)
+        rng = np.random.default_rng(args.seed + 2 + a)
+        cached, raw = family_gemms(cfg)
+        direct = cfg.family == "encdec" or cfg.frontend
+        if direct:
+            batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (2, 5)), device=dev)}
+            extra = 1  # frontend_proj: the vlm's patches at prefill, the encoder's frames
+            if cfg.family == "encdec":
+                batch["frames"] = torch.tensor(rng.standard_normal((2, 7, cfg.frontend_dim)),
+                                               device=dev)
+                extra += cfg.num_encoder_layers * (4 + (3 if cfg.gated_mlp else 2))
+            else:
+                batch["patch_embeds"] = torch.tensor(
+                    rng.standard_normal((2, cfg.frontend_len, cfg.frontend_dim)), device=dev)
+            max_len = cfg.frontend_len + 5 + 3
+        else:
+            prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 7, 4)]
+
+        def run(policy):
+            zero_counts()
+            if direct:  # two model calls after the prefill
+                m = Model(dataclasses.replace(cfg, gemm=policy), device=dev)
+                sp = quantize_params(params, policy) if policy.plans_enabled else params
+                zero_counts()
+                cache = m.init_cache(sp, batch, max_len)
+                logits, cache = m.prefill(sp, batch, cache)
+                rows = [logits.clone()]
+                for _ in range(2):
+                    logits, cache = m.decode_step(sp, logits.argmax(-1), cache)
+                    rows.append(logits.clone())
+                torch.cuda.synchronize()
+                return rows, (extra + 3 * cached, 3 * raw), get_counts()
+            eng = BatchingEngine(model, params, policy=policy, max_len=12, max_slots=2,
+                                 page_size=4)
+            zero_counts()
+            with ServeRecorder(eng) as rec:
+                rids = [eng.submit(p, max_new_tokens=3) for p in prompts]
+                res = eng.run()
+                torch.cuda.synchronize()
+            check(all(res[r].status is RequestStatus.FINISHED for r in rids),
+                  f"{arch} {policy.spec}: unfinished")
+            calls = rec.waves + rec.steps
+            rows = [row for r in rids for row in rec.rows[r]]
+            return rows, (cached * calls, raw * calls), get_counts()
+
+        for spec in (SERVE_POLICY, *SERVE_SMOKE_POLICIES):
+            pol = parse_policy(spec)
+            rows, (c_cached, c_raw), counts = run(pol)
+            core = dataclasses.replace(pol, backend="core", fused=True)
+            rows_c, _, counts_c = run(core)
+            check(all(v == 0 for v in counts_c.values()), f"{arch}: {core.spec} launched a kernel")
+            check(len(rows) == len(rows_c), f"{arch} {spec}: {len(rows)} vs {len(rows_c)} rows")
+            for j, (r, rc) in enumerate(zip(rows, rows_c)):
+                check_equal(r, rc, f"{arch} {spec} row {j}: logits vs +core")
+            want = predicted_launches(spec, pol.moduli_set().n, c_cached, c_raw, counts)
+            check(counts == want, f"{arch} {spec}: launches {counts}, predicted {want}")
+            launches.setdefault(arch, {})[spec] = {k: v for k, v in counts.items() if v}
+        print(f"  smoke width {arch} ({cfg.family}{', direct' if direct else ''}): "
+              f"{len(launches[arch])} policies, tokens and logits == +core (bitwise), launches "
+              f"as predicted ({cached} cached + {raw} raw GEMMs a call): "
+              f"{launches[arch][SERVE_POLICY]} under {SERVE_POLICY}", flush=True)
+        del model, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def families_phase(args, dev) -> dict:
+    """Phase 11 (module docstring). Returns the kernels line's K2 row at
+    moonshot's lm_head decode shape and the phase's numbers."""
+    out = {arch: family_full_width(args, dev, arch, layers) for arch, layers in FAMILY_FULL}
+    k2_row = out[FAMILY_FULL[0][0]].pop("k2_row")
+    out["smoke_width"] = families_smoke_width(args, dev)
+    return {"k2_row": k2_row, "families": out}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size", type=int, default=8192,
                     help="m = n = k of the main path (default 8192)")
     ap.add_argument("--hpl-n", type=int, default=8192,
                     help="n of the HPL runs of phase 7 (default 8192)")
-    ap.add_argument("--serve-layers", type=int, default=2,
-                    help="layers of qwen2-7b in phase 10 (default 2 of 28)")
+    ap.add_argument("--serve-layers", type=int, default=1,
+                    help="layers of qwen2-7b in phase 10 (default 1 of 28)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1978,6 +2433,11 @@ def main() -> int:
     serve = serve_phase(args, dev)
     t0 = phase("10 serve", t0)
     print(json.dumps({"serve": serve["serve"]}))
+
+    # ---- 11. the other model families: MoE and SSM at full width, six smoke -
+    families = families_phase(args, dev)
+    t0 = phase("11 families", t0)
+    print(json.dumps({"families": families["families"]}))
     print(f"total {time.perf_counter() - t_start:.1f} s; DEFAULT_NUM_MODULI "
           f"{DEFAULT_NUM_MODULI}", flush=True)
 
@@ -1988,7 +2448,8 @@ def main() -> int:
                    launches=next(r for r in hpl_rows
                                  if r["policy"] == "ozaki2-fp8/fast")["k2_launches"])
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
-                                  for row in (main, k2_main, *unfused_rows, serve["k2_row"])]}))
+                                  for row in (main, k2_main, *unfused_rows, serve["k2_row"],
+                                              families["k2_row"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,23 +1,26 @@
-"""Attention (the torch counterpart of ``repro/models/attention.py``, its GQA
-part): RoPE, QKV bias, softcap, sliding-window/global alternation, head
-padding.
+"""Attention (the torch counterpart of ``repro/models/attention.py``): GQA
+(RoPE, QKV bias, softcap, sliding-window/global alternation, head padding,
+cross-attention over an encoder memory) and MLA (deepseek-v3's latent
+attention with a compressed KV cache and weight absorption).
 
 Cache contract (serve substrate):
   GQA cache: {"k": (B, L, KV, hd), "v": (B, L, KV, hd)}  + a shared "pos"
+  MLA cache: {"ckv": (B, L, r_kv), "krope": (B, L, rope)}
 Prefill writes [0, S); decode reads [0, pos] and writes slot pos.
 
 Continuous-batching extensions (``repro_torch.serve.batching``): ``t.pos``
 may be a per-slot vector (B,) instead of a shared scalar, ``t.lengths``
 masks ragged right-padded prefill batches, and ``t.block_tables`` switches
 the cache tensors from dense per-slot arrays to shared paged pools
-(``paged_kv``): {"k"/"v": (P, ps, KV, hd)}. All three are bitwise-neutral:
+(``paged_kv``): GQA {"k"/"v": (P, ps, KV, hd)}, MLA {"ckv": (P, ps, r_kv),
+"krope": (P, ps, rope)}. All three are bitwise-neutral:
 gathered pools reproduce the dense layout, and padded key positions carry
 exactly-zero softmax weight (exp(-1e30) underflows to 0.0).
 
 Caches are written in place (the reference donates them to its jitted
-steps) and returned. The two attention products stay plain ``torch.einsum``
-calls, as in the reference, where they are no Pallas kernel. MLA
-(deepseek-v3's latent attention) is not ported yet (ROADMAP Queue A item 5).
+steps) and returned. The attention products (and MLA's absorbed
+``w_uk``/``w_uv``) stay plain ``torch.einsum`` calls, as in the reference,
+where they are no Pallas kernel.
 """
 from __future__ import annotations
 
@@ -39,12 +42,6 @@ class AttnTemporal(NamedTuple):
     block_tables: Optional[torch.Tensor] = None  # (B, nb) paged-KV page map
 
 
-def _mla_not_ported(cfg: ModelConfig):
-    raise NotImplementedError(
-        f"{cfg.name}: MLA (latent attention) is not ported to repro_torch yet; "
-        "ROADMAP Queue A item 5 lists it first among the remaining model pieces")
-
-
 # ------------------------------------------------------------------ GQA
 def _h_eff(cfg: ModelConfig) -> int:
     """Effective Q-head count: padded to attn_head_pad_to when set (padded
@@ -63,8 +60,8 @@ class GQAAttention(nn.Module):
             self.bq, self.bk, self.bv = (frozen(b) for b in (bq, bk, bv))
 
     def forward(self, x, cfg: ModelConfig, t: AttnTemporal, layer_window,
-                cache: Optional[dict]):
-        return gqa_apply(self, x, cfg, t, layer_window, cache)
+                cache: Optional[dict], cross_kv: Optional[torch.Tensor] = None):
+        return gqa_apply(self, x, cfg, t, layer_window, cache, cross_kv)
 
 
 def gqa_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> GQAAttention:
@@ -115,22 +112,31 @@ def _sdpa(q, k, v, mask, attn_softcap):
 
 
 def gqa_apply(p: GQAAttention, x: torch.Tensor, cfg: ModelConfig, t: AttnTemporal,
-              layer_window, cache: Optional[dict]):
-    """Returns (out, new_cache); ``cache`` is None when not serving."""
+              layer_window, cache: Optional[dict],
+              cross_kv: Optional[torch.Tensor] = None):
+    """Returns (out, new_cache); ``cache`` is None when not serving. If
+    ``cross_kv`` is given, keys/values come from it (encoder memory) and no
+    causal mask / rope is applied."""
     b, s, _ = x.shape
     h, kvh, hd = _h_eff(cfg), cfg.num_kv_heads, cfg.head_dim
     gemm = cfg.gemm
 
     q = matmul(x, p.wq, gemm)
-    k = matmul(x, p.wk, gemm)
-    v = matmul(x, p.wv, gemm)
+    src = cross_kv if cross_kv is not None else x
+    k = matmul(src, p.wk, gemm)
+    v = matmul(src, p.wv, gemm)
     if cfg.qkv_bias:
         q = q + p.bq.to(q.dtype)
         k = k + p.bk.to(k.dtype)
         v = v + p.bv.to(v.dtype)
     q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kvh, hd)
-    v = v.reshape(b, s, kvh, hd)
+    k = k.reshape(b, src.shape[1], kvh, hd)
+    v = v.reshape(b, src.shape[1], kvh, hd)
+
+    if cross_kv is not None:
+        mask = torch.ones((b, s, src.shape[1]), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, k, v, mask, cfg.attn_softcap)
+        return matmul(out, p.wo, gemm), cache
 
     q = apply_rope(q, t.positions, cfg.rope_theta)
     k = apply_rope(k, t.positions, cfg.rope_theta)
@@ -183,13 +189,122 @@ def gqa_apply(p: GQAAttention, x: torch.Tensor, cfg: ModelConfig, t: AttnTempora
     return matmul(out, p.wo, gemm), cache
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> GQAAttention:
-    if cfg.use_mla:
-        _mla_not_ported(cfg)
-    return gqa_init(gen, cfg, dtype)
+# ------------------------------------------------------------------ MLA
+class MLAAttention(nn.Module):
+    """Latent attention: ``w_dkv`` (down-projection + shared k_rope),
+    ``w_uk``/``w_uv`` (absorbed into the scores and the output, never
+    ``layers.matmul`` operands), ``wo``, and either ``w_dq``/``w_uq`` (with a
+    q LoRA rank) or ``w_q``."""
+
+    def __init__(self, w_dkv, w_uk, w_uv, wo, w_dq=None, w_uq=None, w_q=None):
+        super().__init__()
+        self.w_dkv, self.w_uk, self.w_uv, self.wo = (frozen(w) for w in (w_dkv, w_uk, w_uv, wo))
+        if w_dq is not None:
+            self.w_dq, self.w_uq = frozen(w_dq), frozen(w_uq)
+        else:
+            self.w_q = frozen(w_q)
+
+    def forward(self, x, cfg: ModelConfig, t: AttnTemporal, cache: Optional[dict]):
+        return mla_apply(self, x, cfg, t, cache)
 
 
-def apply_attention(p, x, cfg: ModelConfig, t: AttnTemporal, layer_window, cache):
+def mla_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> MLAAttention:
+    d, h = cfg.d_model, cfg.num_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    rope, nope, vd = cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+    w = [dense_init(gen, d, r_kv + rope, dtype), dense_init(gen, r_kv, h * nope, dtype),
+         dense_init(gen, r_kv, h * vd, dtype), dense_init(gen, h * vd, d, dtype)]
+    if r_q:
+        return MLAAttention(*w, w_dq=dense_init(gen, d, r_q, dtype),
+                            w_uq=dense_init(gen, r_q, h * (nope + rope), dtype))
+    return MLAAttention(*w, w_q=dense_init(gen, d, h * (nope + rope), dtype))
+
+
+def mla_apply(p: MLAAttention, x: torch.Tensor, cfg: ModelConfig, t: AttnTemporal,
+              cache: Optional[dict]):
+    """Returns (out, new_cache); the cache is written in place."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    rope, nope, vd = cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+    r_kv = cfg.kv_lora_rank
+    gemm = cfg.gemm
+
+    if cfg.q_lora_rank:
+        q = matmul(matmul(x, p.w_dq, gemm), p.w_uq, gemm)
+    else:
+        q = matmul(x, p.w_q, gemm)
+    q = q.reshape(b, s, h, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, t.positions, cfg.rope_theta)
+
+    dkv = matmul(x, p.w_dkv, gemm)
+    ckv, krope = dkv[..., :r_kv], dkv[..., r_kv:]
+    krope = apply_rope(krope[:, :, None, :], t.positions, cfg.rope_theta)[:, :, 0, :]
+
+    if cache is not None:
+        paged = t.block_tables is not None
+        if s == 1:  # decode
+            idx = t.pos
+            per_slot = torch.is_tensor(idx) and idx.ndim == 1
+            if paged:
+                idx = idx.to(torch.int32)
+                paged_update(cache["ckv"], ckv, t.block_tables, idx[:, None])
+                paged_update(cache["krope"], krope, t.block_tables, idx[:, None])
+                ckv_all = paged_gather(cache["ckv"], t.block_tables)
+                krope_all = paged_gather(cache["krope"], t.block_tables)
+            elif per_slot:  # dense slot cache, per-slot depths
+                rows = torch.arange(b, device=x.device)
+                idx = idx.long()
+                cache["ckv"][rows, idx] = ckv[:, 0]
+                cache["krope"][rows, idx] = krope[:, 0]
+                ckv_all, krope_all = cache["ckv"], cache["krope"]
+            else:  # aligned batch, shared scalar position
+                idx = int(idx)
+                cache["ckv"][:, idx:idx + 1] = ckv
+                cache["krope"][:, idx:idx + 1] = krope
+                ckv_all, krope_all = cache["ckv"], cache["krope"]
+            L = ckv_all.shape[1]
+            k_pos = torch.arange(L, dtype=torch.int32, device=x.device).expand(b, L)
+            mask = k_pos[:, None, :] <= (idx[:, None, None] if per_slot or paged else idx)
+            ckv_src, krope_src = ckv_all, krope_all
+        else:  # prefill
+            if paged:
+                paged_update(cache["ckv"], ckv, t.block_tables, t.positions)
+                paged_update(cache["krope"], krope, t.block_tables, t.positions)
+            else:
+                cache["ckv"][:, :s] = ckv
+                cache["krope"][:, :s] = krope
+            mask = t.positions[:, :, None] >= t.positions[:, None, :]
+            if t.lengths is not None:  # mask keys past each row's prompt
+                key_ok = (torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+                          < t.lengths[:, None])
+                mask = mask & key_ok[:, None, :]
+            ckv_src, krope_src = ckv, krope
+    else:
+        mask = t.positions[:, :, None] >= t.positions[:, None, :]
+        ckv_src, krope_src = ckv, krope
+
+    # weight absorption: score = q_nope^T W_uk ckv + q_rope^T k_rope
+    w_uk = p.w_uk.reshape(r_kv, h, nope)
+    q_abs = torch.einsum("bshn,rhn->bshr", q_nope, w_uk.to(q_nope.dtype))
+    scale = (nope + rope) ** -0.5
+    logits = (torch.einsum("bshr,blr->bhsl", q_abs, ckv_src)
+              + torch.einsum("bshd,bld->bhsl", q_rope, krope_src)).to(torch.float32) * scale
+    logits = torch.where(mask[:, None, :, :], logits, -1e30)
+    w = torch.softmax(logits, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhsl,blr->bshr", w, ckv_src)  # attention in latent space
+    w_uv = p.w_uv.reshape(r_kv, h, vd)
+    out = torch.einsum("bshr,rhv->bshv", ctx, w_uv.to(ctx.dtype)).reshape(b, s, h * vd)
+    return matmul(out, p.wo, gemm), cache
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> nn.Module:
+    return mla_init(gen, cfg, dtype) if cfg.use_mla else gqa_init(gen, cfg, dtype)
+
+
+def apply_attention(p, x, cfg: ModelConfig, t: AttnTemporal, layer_window, cache,
+                    cross_kv=None):
     if cfg.use_mla:
-        _mla_not_ported(cfg)
-    return gqa_apply(p, x, cfg, t, layer_window, cache)
+        assert cross_kv is None
+        return mla_apply(p, x, cfg, t, cache)
+    return gqa_apply(p, x, cfg, t, layer_window, cache, cross_kv)

@@ -3,9 +3,7 @@
 
 One frozen dataclass drives dense / MoE / SSM / hybrid / enc-dec / VLM /
 audio families; ``repro_torch/configs/<arch>.py`` instantiate it with the
-published hyperparameters (full) plus reduced smoke variants. The port's
-models run the dense family (``repro_torch.models.model``); the fields of
-the other families are kept so that every config reads the same.
+published hyperparameters (full) plus reduced smoke variants.
 """
 from __future__ import annotations
 

@@ -108,9 +108,10 @@ class WeightResidueCache:
         return self._nbytes
 
 
-#: A per-layer path "stages.<s>.<i>.<rest>" and its stage-level path
-#: "stages.<s>.<rest>" (the reference's stacked leaf).
-_LAYER = re.compile(r"^(stages\.\d+)\.\d+\.(.+)$")
+#: A per-layer path "[<prefix>.]stages.<s>.<i>.<rest>" and its stage-level
+#: path "[<prefix>.]stages.<s>.<rest>" (the reference's stacked leaf; the
+#: prefix is "encoder" for the encoder-decoder's encoder).
+_LAYER = re.compile(r"^((?:.+\.)?stages\.\d+)\.\d+\.(.+)$")
 
 
 def collect_weight_sketches(params: nn.Module) -> tuple[WeightSketch, ...]:

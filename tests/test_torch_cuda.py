@@ -5,8 +5,9 @@ int8_gemm, K5 requant_garner in its digits and f64 modes, K6
 quant_residues with its frame and f64 entries) against their plain
 versions on the card, bitwise; accurate scaling's bound GEMM under the
 global TF32 switch; and the serving path: K2 on a cached weight plan at a
-decode batch's few rows, and the smoke engine on the kernel routes against
-'+core'. Every test here is marked ``cuda`` and
+decode batch's few rows, and the smoke engine (qwen2-7b; the MoE and MLA
+families' moonshot and deepseek) on the kernel routes against '+core'.
+Every test here is marked ``cuda`` and
 skips without a CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -686,6 +687,52 @@ def test_smoke_engine_on_card_equals_core(spec):
         return [res[r].tokens for r in rids], rows
 
     toks, rows = run(pol)
+    toks_c, rows_c = run(dataclasses.replace(pol, backend="core", fused=True))
+    assert toks == toks_c and len(rows) == len(rows_c) == 9
+    assert all(torch.equal(a, b) for a, b in zip(rows, rows_c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])
+def test_moe_smoke_engine_on_card_equals_core(arch, monkeypatch):
+    """The paged engine on a MoE smoke config (deepseek's with MLA's latent
+    page pools) on the card under ozaki2-fp8/fast: every K2 call bitwise
+    equal to its plain version on the same arguments, and the tokens and
+    every emitted logits row equal to the '+core' route's, bitwise."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fused import ops
+    from repro_torch.models import Model
+    from repro_torch.serve import BatchingEngine
+
+    model = Model(get_config(arch, "smoke"), device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    params = model.init(gen)
+    prompts = [[3, 14, 15, 92, 65], [35, 89, 79, 32, 38, 46, 26], [43, 38, 32, 79]]
+    pol = parse_policy("ozaki2-fp8/fast")
+    k2, equal = ops.ozmm_fused_parts, []
+
+    def checked(*a, **kw):
+        out = k2(*a, **kw)
+        equal.append(torch.equal(out, fused.ozmm_fused_parts_ref(*a, **kw)))
+        return out
+
+    def run(policy):
+        eng = BatchingEngine(model, params, max_len=12, max_slots=2, page_size=4, policy=policy)
+        rows, emit = [], eng._emit
+        eng._emit = lambda slot, row: (rows.append(row.clone()), emit(slot, row))[1]
+        rids = [eng.submit(p, max_new_tokens=3) for p in prompts]
+        res = eng.run()
+        return [res[r].tokens for r in rids], rows
+
+    monkeypatch.setattr(ops, "ozmm_fused_parts", checked)
+    launches = fused.ozmm_fused_parts.launches
+    toks, rows = run(pol)
+    monkeypatch.undo()
+    assert fused.ozmm_fused_parts.launches - launches == len(equal) > 0 and all(equal)
     toks_c, rows_c = run(dataclasses.replace(pol, backend="core", fused=True))
     assert toks == toks_c and len(rows) == len(rows_c) == 9
     assert all(torch.equal(a, b) for a, b in zip(rows, rows_c))
