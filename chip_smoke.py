@@ -4,6 +4,8 @@
     python3 chip_smoke.py                          # from the root of a checkout
     python3 chip_smoke.py --size 2048 --hpl-n 1024  # a quick first call
     python3 chip_smoke.py --serve-layers 2          # phase 10 at depth 2
+    python3 -c 'import chip_smoke as c, torch, argparse; c.train_phase(
+        argparse.Namespace(seed=0), torch.device("cuda"))'  # phase 12 alone
 
 Phases, each printing its elapsed time; any failed check raises and the
 script exits non-zero without printing a result:
@@ -176,8 +178,47 @@ script exits non-zero without printing a result:
    phase 10's smoke width: tokens and logits bitwise equal to the '+core'
    twin, each kernel's launches as predicted.
 
+12. training (repro_torch.train, optim, checkpoint, data, runtime), the
+   earlier phases' models freed first. (a) starcoder2-15b at its published
+   widths (d_model 6144, 48/4 heads x 128, d_ff 24576, plain GELU MLP, QKV
+   bias, vocab 49152, untied lm_head, remat "full"), cut to 2 of 40 layers,
+   f32 parameters from the seed, bf16 compute, "ozaki2-fp8/fast" on backend
+   auto: Trainer(4 steps, 2 microbatches) over DataConfig(batch 8, seq_len
+   256). Checks: every loss finite; the parameters moved; K1 launched as
+   train_gemms reckons it (a microbatch: 13 forward, 12 recomputed, 26
+   cotangent GEMMs) with 2 prologues each, K2-K6 never; K1 and its
+   prologue at their first call of every distinct input shape bitwise
+   against their plain versions. Reported: the step (median of steps 1-3),
+   split by CUDA events (K1 core, prologue, decompose_raw + padding, the
+   glue's f64 copies, scaling, AdamW, attention, the rest), tokens/s, peak
+   GB, K1 at lm_head's input-gradient shape (1024 x 49152 x 6144, the
+   vocabulary contraction) beside its plain version, bound and cuBLAS
+   DGEMM, and the same run under "native" (bf16 torch.matmul). (b) FP64
+   grade: (a)'s trained parameters in f64, a synth_batch(step=10000) of 2 x
+   128: "ozaki2-fp8/accurate" (K1) against "native" f64 (cuBLAS DGEMM):
+   lm_head's product on the final hidden state in f64 within twice
+   DGEMM's componentwise error bound k 2^-53 |h||W|; forward_train's
+   logits (f32, as the reference's models emit them) within one f32 ulp;
+   every parameter's gradient of loss_fn within 2^-23 normwise (the
+   reference example's max |d| / (|ref| + 1e-6) < 1e-9 is reported: the
+   model's f32 islands and near-zero logits put it out of reach here). (c) the smoke configs of qwen2-7b, starcoder2,
+   moonshot (MoE aux), deepseek-v3 (MLA + MoE + MTP), mamba2 (tied head),
+   zamba2 (shared block), seamless-m4t (frames) and internvl2 (patches,
+   masked labels): one make_train_step step under ozaki2-fp8/fast (K1) and
+   ozaki2-fp8/accurate+unfused (K6, K3, K5), and ozaki2-int8/fast+unfused
+   (K6, K4, K5) for qwen2-7b, each against its '+core' twin from the same
+   state and batch (loss, gradients, new parameters and moments bitwise),
+   each kernel's launches as predicted; the Trainer at qwen2-7b's smoke
+   width resumed from the CheckpointManager (4 steps straight == 2, a
+   restore, 2 more, bitwise); beside a probe of whether the backward's
+   accumulating ops (the embedding gather's, take_along_dim's, the dispatch
+   einsum's) give the same bits twice (the phase needs no
+   torch.use_deterministic_algorithms: the probe found all three
+   deterministic on the card).
+
 The last two lines are the card (nvidia-smi name, power limit) and
-{"ok": true, "device": {...}}; before them a {"kernels": [...]} line.
+{"ok": true, "device": {...}}; before them a {"kernels": [...]} line, whose
+last row is K1 at phase 12's training shape, with phase 12 (a)'s launches.
 """
 from __future__ import annotations
 
@@ -1994,6 +2035,624 @@ def families_phase(args, dev) -> dict:
     return {"k2_row": k2_row, "families": out}
 
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: training (repro_torch.train, optim, checkpoint, data, runtime)
+
+#: (a)/(b): starcoder2-15b at its published widths (every contraction under
+#: K1's 2^16; vocab 49,152), depth cut to 2 of 40 layers: memory and the
+#: run's time, while two layers keep remat and a layer-to-layer gradient.
+TRAIN_ARCH = "starcoder2-15b"
+TRAIN_LAYERS = 2
+TRAIN_POLICY = "ozaki2-fp8/fast"
+TRAIN_STEPS = 4
+TRAIN_MICROBATCHES = 2
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+#: (b): the batch of the FP64-grade check, and one f32 ulp (2^-23
+#: relative), the resolution of the model's own f32 islands, the gate on its
+#: f32 logits and (normwise) its gradients. The reference example's gate
+#: (examples/fp64_train.py), max |emulated - native| / (|native| + 1e-6) <
+#: 1e-9, is reported, not gated: at this width the first chip runs found
+#: the f32 logits one ulp apart (1.1e-7), the embedding's gradient 2.1e-9
+#: and lm_head's product in f64 2.3e-9 (logits near 0, where 1e-6 is no
+#: floor for a k = 6144 sum's rounding); the f64 product is gated by DGEMM's
+#: componentwise error bound instead.
+FP64_BATCH, FP64_SEQ, F32_ULP = 2, 128, 2.0 ** -23
+#: (c): the smoke configs trained one step each under these policies (and
+#: ozaki2-int8/fast+unfused on the first), against their '+core' twins.
+TRAIN_FAMILIES = ("qwen2-7b", "starcoder2-15b", "moonshot-v1-16b-a3b", "deepseek-v3-671b",
+                  "mamba2-2.7b", "zamba2-1.2b", "seamless-m4t-medium", "internvl2-26b")
+TRAIN_SMOKE_POLICIES = ("ozaki2-fp8/fast", "ozaki2-fp8/accurate+unfused")
+TRAIN_INT8_POLICY = "ozaki2-int8/fast+unfused"
+
+
+def train_gemms(cfg) -> tuple[int, int, int]:
+    """(forward, remat-recomputed, backward) emulated GEMMs of one loss and
+    its gradient on a batch, reckoned from the config: the serving count of
+    one model call (family_gemms; training has no plans, so all are raw),
+    plus the frontend projection (the vlm's patches; the encdec's frames and
+    its encoder layers) and the MTP head (proj, a dense block, lm_head
+    again); under remat "full" (dense only here) each layer's GEMMs once
+    more; two cotangent GEMMs a GEMM, one where its input is data (the
+    frontend projection's patches or frames)."""
+    cached, raw = family_gemms(cfg)
+    fwd = cached + raw
+    attn = ((2 if cfg.q_lora_rank else 1) + 2) if cfg.use_mla else 4
+    mlp = 3 if cfg.gated_mlp else 2
+    data_inputs = 1 if cfg.frontend else 0
+    if cfg.family == "encdec":
+        fwd += 1 + cfg.num_encoder_layers * (4 + mlp)
+    elif cfg.frontend:
+        fwd += 1
+    if cfg.mtp_depth:
+        fwd += 1 + attn + mlp + 1
+    recompute = 0
+    if cfg.remat == "full":
+        check(cfg.family == "dense", "train_gemms reckons remat for dense configs only")
+        recompute = cfg.num_layers * (attn + mlp)
+    return fwd, recompute, 2 * fwd - data_inputs
+
+
+#: Phase 12's plain-version checks run on blocks, so that their stacks fit
+#: beside the training run: an operand panel of at most PLAIN_PANEL
+#: elements (its parts for every modulus), an output block of at most
+#: PLAIN_OUT.
+PLAIN_PANEL, PLAIN_OUT = 1 << 26, 1 << 23
+
+
+def split_planes(parts) -> list:
+    """The planes of ``quantize.split_residues``' per-modulus parts, in
+    ``part_planes``' order (a square modulus has no hs)."""
+    return [t for p in parts for t in p]
+
+
+def plain_block(k: int, cap: int) -> int:
+    """Rows (or columns) of a plain-version block at contraction ``k``."""
+    return max(128, min(cap, PLAIN_PANEL // k) // 128 * 128)
+
+
+class CheckK1Training:
+    """Wraps the fused ops' K1 call while in the block: at its first call at
+    each distinct set of input shapes, K1's result is held bitwise against
+    its plain version (``raw_split_parts`` + ``parts_product_plain``, the
+    composition ``ozmm_fused_raw_ref`` is) block by block, A's parts once a
+    row block (output rows and columns are independent), and its residue
+    prologue, run on the whole operands, plane by plane against the same
+    plain parts (``raw_parts_plain``'s planes: B's transposed to K-major);
+    the prologue launches of the check are taken back off its counter."""
+
+    def __init__(self, what: str):
+        self.what, self.shapes = what, []
+
+    def __enter__(self):
+        from repro_torch.kernels.fused import kernel as fk
+        from repro_torch.kernels.fused import ops, part_planes
+
+        self.orig = fn = ops.ozmm_fused_raw
+
+        def checked(*a, **kw):
+            out = fn(*a, **kw)
+            key = shapes_of(a)
+            if key in self.shapes:
+                return out
+            self.shapes.append(key)
+            ms, tbl = kw["ms"], a[8]
+            (m, k), n = a[0].shape, a[4].shape[1]
+            mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu = a[:8]
+            counted = fk.raw_parts.launches
+            kern_a = part_planes(fk.raw_parts(*a[:4], tbl, ms=ms, axis=0), ms)
+            kern_b = part_planes(fk.raw_parts(*a[4:8], tbl, ms=ms, axis=1), ms)
+            fk.raw_parts.launches = counted
+            rows = plain_block(k, m)
+            cols = plain_block(k, max(128, PLAIN_OUT // rows))
+            for r0 in range(0, m, rows):  # A's parts once a row block
+                rs = slice(r0, r0 + rows)
+                pa = fk.raw_split_parts(mh_a[rs], ml_a[rs], e_a[rs] + lmu[rs], tbl, ms=ms)
+                for i, (g, w) in enumerate(zip(kern_a, split_planes(pa))):
+                    check_equal(as_bytes(g[rs]), as_bytes(w),
+                                f"{self.what} K1 prologue at {key} A plane {i} rows {r0}")
+                for c0 in range(0, n, cols):
+                    cs = slice(c0, c0 + cols)
+                    pb = fk.raw_split_parts(mh_b[:, cs], ml_b[:, cs], e_b[:, cs] + lnu[:, cs],
+                                            tbl, ms=ms)
+                    if r0 == 0:  # the prologue: B's parts K-major
+                        for i, (g, w) in enumerate(zip(kern_b, split_planes(pb))):
+                            check_equal(as_bytes(g[cs]), as_bytes(w.t().contiguous()),
+                                        f"{self.what} K1 prologue at {key} B plane {i} "
+                                        f"columns {c0}")
+                    want = fk.parts_product_plain(pa, pb, lmu[rs], lnu[:, cs], ms=ms)
+                    check_equal(out[rs, cs], want,
+                                f"{self.what} K1 at input shapes {key}, block ({r0}, {c0})")
+                    del pb, want
+                del pa
+            return out
+
+        ops.ozmm_fused_raw = checked
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.fused import ops
+
+        ops.ozmm_fused_raw = self.orig
+
+
+def param_slices(params) -> dict:
+    """Copies of a few slices of the parameters (embed, a layer weight, the
+    final norm, lm_head), to show that a run moved them."""
+    return {name: p.detach()[..., :8].clone() for name, p in params.named_parameters()
+            if name in ("embed", "stages.0.0.attn.wq", "stages.0.1.mlp.w_down", "final_norm",
+                        "lm_head")}
+
+
+def k1_train_row(a, b, launches: int) -> dict:
+    """The kernels line's row of K1 at the training path's vocabulary
+    contraction (lm_head's input gradient, dlogits @ W^T): bitwise against
+    its plain version, timed (median of 5 after a warm-up; the plain version
+    3) beside its bound and cuBLAS DGEMM on the same f64 inputs."""
+    import torch
+
+    from repro_torch.core.scaling import compute_scaling
+    from repro_torch.kernels.fused import KERNEL_TILE, fused_raw_args, ozmm_fused_raw, ozmm_fused_raw_ref
+    from repro_torch.precision import parse_policy
+
+    pol = parse_policy(TRAIN_POLICY)
+    ms = pol.moduli_set()
+    (m, k), n = a.shape, b.shape[1]
+    scal = compute_scaling(a, b, ms, pol.mode)
+    fa = fused_raw_args(a, scal.lmu, b, scal.lnu, ms, KERNEL_TILE)
+    counted = ozmm_fused_raw.launches
+    got = ozmm_fused_raw(*fa, ms=ms)
+    plain = ozmm_fused_raw_ref(*fa, ms=ms)
+    max_err = (got - plain).abs().max().item()
+    del got, plain
+    ms_k1 = cuda_ms(lambda: ozmm_fused_raw(*fa, ms=ms))
+    ms_plain = cuda_ms(lambda: ozmm_fused_raw_ref(*fa, ms=ms), K1_REPS)
+    ozmm_fused_raw.launches = counted
+    ms_dgemm = cuda_ms(lambda: torch.matmul(a, b))
+    n_bytes = sum(t.numel() * t.element_size() for t in fa) + m * n * 8
+    del fa
+    t_ops = 3 * ms.n * 2 * m * n * k / H100_FP8_OPS_PER_S * 1e3
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    check(max_err == 0.0, f"K1 at the training shape {m}x{k}x{n} differs from its plain version")
+    row = {"name": "ozmm_fused_raw", "policy": TRAIN_POLICY, "shape": [m, k, n], "route": "cuda",
+           "source": "src/repro_torch/csrc/fused_raw.cu",
+           "replaces": "src/repro/kernels/fused/kernel.py:238",
+           "launches": launches, "max_abs_err": max_err, "ms": ms_k1, "plain_ms": ms_plain,
+           "bound_ms": max(t_ops, t_bytes), "bound_by": "bytes" if t_bytes > t_ops else "operations",
+           "library_ms": ms_dgemm}
+    print(f"  K1 at lm_head's input-gradient shape {m}x{k}x{n} (the vocabulary contraction): "
+          f"{ms_k1:.2f} ms, plain {ms_plain:.2f} ms, bound {row['bound_ms']:.2f} ms "
+          f"({row['bound_by']}), cuBLAS DGEMM {ms_dgemm:.2f} ms", flush=True)
+    return row
+
+
+def train_full_width(args, dev) -> dict:
+    """Phase 12 (a) (module docstring). Returns the run's numbers, the K1
+    row, and the trained parameters and config for (b)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import gemm, scaling
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels.fused import kernel as fused_kernel
+    from repro_torch.kernels.fused import ops
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import step as step_mod
+
+    get_counts, zero_counts = serve_counters()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(TRAIN_ARCH, "full")
+    cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS, gemm=TRAIN_POLICY)
+    data = DataConfig(seed=args.seed, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                      vocab_size=cfg.vocab_size)
+    tcfg = TrainerConfig(steps=TRAIN_STEPS, microbatches=TRAIN_MICROBATCHES, log_every=1,
+                         seed=args.seed)
+    fwd, recompute, bwd = train_gemms(cfg)
+    per_mb = fwd + recompute + bwd
+    want_k1 = TRAIN_STEPS * TRAIN_MICROBATCHES * per_mb
+    rows = TRAIN_BATCH // TRAIN_MICROBATCHES * TRAIN_SEQ
+    print(f"  {cfg.name}: d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.act}, plain MLP), QKV bias, vocab "
+          f"{cfg.vocab_size}, untied lm_head, remat {cfg.remat!r}; {TRAIN_LAYERS} of "
+          f"{full.num_layers} layers; f32 parameters from the seed, {cfg.dtype} compute, "
+          f"{cfg.gemm.spec} on backend auto; Trainer: {TRAIN_STEPS} steps x "
+          f"{TRAIN_MICROBATCHES} microbatches of {rows} rows", flush=True)
+
+    class Hook:
+        """step_transform: snapshots parameter slices before the first step
+        (which carries the checks) and restarts the split and the peak
+        memory after it."""
+
+        def __init__(self, totals):
+            self.totals, self.steps, self.before, self.peak_checks = totals, 0, None, 0.0
+
+        def __call__(self, step_fn):
+            def run(state, batch):
+                if self.steps == 0:
+                    self.before = param_slices(state.params)
+                    self.params = sum(p.numel() for p in state.params.parameters())
+                elif self.steps == 1:
+                    torch.cuda.synchronize()
+                    for t in self.totals.values():
+                        t.spans.clear()
+                    self.peak_checks = torch.cuda.max_memory_allocated() / 1e9
+                    torch.cuda.reset_peak_memory_stats()
+                self.steps += 1
+                return step_fn(state, batch)
+            return run
+
+    zero_counts()
+    sink = []
+    with CallTotals(fused_kernel, "gemm_core") as t_core, \
+            CallTotals(fused_kernel, "raw_parts") as t_pro, \
+            CallTotals(ops, "fused_raw_args") as t_frames, \
+            CallTotals(ops, "row_major") as t_rowmajor, \
+            CallTotals(gemm, "_as_f64") as t_f64, \
+            CallTotals(scaling, "compute_scaling") as t_scal, \
+            CallTotals(step_mod, "opt_update") as t_adamw, \
+            CallTotals(attn_mod, "_sdpa") as t_attn, CheckK1Training(cfg.name) as k1c:
+        totals = {"k1_core": t_core, "k1_prologue": t_pro, "decompose_raw_and_pad": t_frames,
+                  "f64_copies": t_f64, "transposed_copies": t_rowmajor, "scaling": t_scal,
+                  "adamw": t_adamw, "attention": t_attn}
+        hook = Hook(totals)
+        trainer = Trainer(Model(cfg, device=dev), AdamWConfig(), data, tcfg, step_transform=hook)
+        state = trainer.run(sink)
+        torch.cuda.synchronize()
+        split = {k: t.seconds() * 1e3 / (TRAIN_STEPS - 1) for k, t in totals.items()}
+    counts = get_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for m in sink]
+    dts = [m["dt"] for m in sink]
+    check(len(sink) == TRAIN_STEPS, f"{len(sink)} steps, want {TRAIN_STEPS}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    after = param_slices(state.params)
+    check(all(not torch.equal(after[k], v) for k, v in hook.before.items()),
+          "a training run left parameters unmoved")
+    want = {k: 0 for k in counts}
+    want.update({"K1": want_k1, "K1 prologue": 2 * want_k1})
+    check(counts == want, f"training launches {counts}, predicted {want}")
+    step_ms = statistics.median(dts[1:]) * 1e3
+    split["rest"] = step_ms - sum(split.values())
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    print(f"  {hook.params / 1e9:.3f} G parameters; losses {[round(x, 4) for x in losses]}; "
+          f"K1 launches {counts['K1']} = {TRAIN_STEPS} steps x {TRAIN_MICROBATCHES} x "
+          f"({fwd} forward + {recompute} recomputed + {bwd} backward), prologue "
+          f"{counts['K1 prologue']}, K2-K6 0 (as predicted); K1 and its prologue at "
+          f"{len(k1c.shapes)} distinct input shapes == plain versions (bitwise)", flush=True)
+    print(f"  step {step_ms:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}; first step "
+          f"{dts[0] * 1e3:.1f} ms with the checks), {tokens_s:.0f} tokens/s, peak "
+          f"{peak:.2f} GB (the first step with its checks {hook.peak_checks:.2f}); a step by "
+          f"CUDA events: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in split.items()) + " ms", flush=True)
+
+    # K1 at lm_head's input-gradient shape, on the trained weight, with the
+    # moments freed (its plain version holds every modulus' residues of B)
+    params = state.params
+    state.opt.m.clear()
+    state.opt.v.clear()
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 7)
+    dlogits = torch.randn((rows, cfg.vocab_size), generator=gen, device=dev,
+                          dtype=torch.float64) * 1e-4
+    w_t = params.lm_head.detach().T.to(torch.float64).contiguous()
+    k1_row = k1_train_row(dlogits, w_t, counts["K1"])
+    del dlogits, w_t
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the yardstick: the same run under native (bf16 torch.matmul)
+    native_sink = []
+    native_trainer = Trainer(Model(dataclasses.replace(cfg, gemm="native"), device=dev),
+                             AdamWConfig(), data, tcfg)
+    zero_counts()
+    native_trainer.run(native_sink)
+    check(all(v == 0 for v in get_counts().values()), "the native run launched a kernel")
+    native_ms = statistics.median(m["dt"] for m in native_sink[1:]) * 1e3
+    del native_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  native (bf16 torch.matmul) step {native_ms:.1f} ms, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / (native_ms / 1e3):.0f} tokens/s; losses "
+          f"{[round(m['loss'], 4) for m in native_sink]}", flush=True)
+    out = {"arch": cfg.name, "layers": TRAIN_LAYERS, "params": hook.params, "losses": losses,
+           "step_ms": step_ms, "step_ms_each": [d * 1e3 for d in dts], "tokens_per_s": tokens_s,
+           "peak_gb": peak, "peak_gb_first_step": hook.peak_checks, "split_ms": split,
+           "launches": counts,
+           "k1_shapes_checked": len(k1c.shapes), "native_step_ms": native_ms,
+           "native_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (native_ms / 1e3),
+           "native_losses": [m["loss"] for m in native_sink]}
+    return {"numbers": out, "k1_row": k1_row, "params": params, "cfg": cfg}
+
+
+def train_fp64_grade(args, dev, params, cfg) -> dict:
+    """Phase 12 (b) (module docstring): (a)'s trained parameters in f64; the
+    emulated model (ozaki2-fp8/accurate, K1) against the native one (f64
+    cuBLAS DGEMM), both with the reference's f32 islands (rmsnorm, rope,
+    attention's logits and softmax, the logits' f32 output)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.models import Model
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.models.layers import matmul, rmsnorm
+    from repro_torch.train import loss_fn
+
+    get_counts, zero_counts = serve_counters()
+    with torch.no_grad():
+        for p in params.parameters():
+            p.data = p.data.to(torch.float64)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    f64 = dict(dtype="float64", param_dtype="float64")
+    emu = Model(dataclasses.replace(cfg, gemm="ozaki2-fp8/accurate", **f64), device=dev)
+    nat = Model(dataclasses.replace(cfg, gemm="native", **f64), device=dev)
+    batch = synth_batch(DataConfig(seed=args.seed, batch=FP64_BATCH, seq_len=FP64_SEQ,
+                                   vocab_size=cfg.vocab_size), cfg, step=10_000)
+    fwd, recompute, bwd = train_gemms(emu.cfg)
+    hidden, logits_of = [], model_mod.Model._logits
+
+    def keep_hidden(self, p, x):
+        hidden.append(x)
+        return logits_of(self, p, x)
+
+    zero_counts()
+    with torch.no_grad():
+        lg_emu = emu.forward_train(params, batch).logits
+        model_mod.Model._logits = keep_hidden
+        try:
+            lg_nat = nat.forward_train(params, batch).logits
+        finally:
+            model_mod.Model._logits = logits_of
+        # the logits' GEMM itself in f64, on native's final hidden state
+        h = rmsnorm(hidden.pop(), params.final_norm, cfg.norm_eps)
+        z_emu = matmul(h, params.lm_head, emu.cfg.gemm, out_dtype=torch.float64)
+        z_nat = matmul(h, params.lm_head, "native", out_dtype=torch.float64)
+        # a DGEMM's componentwise error bound, gamma_k (|h| |W|) with
+        # gamma_k = k 2^-53: both products lie within it of the exact one
+        bound = matmul(h.abs(), params.lm_head.abs(), "native", out_dtype=torch.float64)
+        bound *= 2 * h.shape[-1] * 2.0 ** -53
+    diff = (z_emu - z_nat).abs()
+    gemm_dev = (diff / (z_nat.abs() + 1e-6)).max().item()
+    gemm_bound = (diff / bound).max().item()
+    gemm_norm = (torch.linalg.vector_norm(z_emu - z_nat) / torch.linalg.vector_norm(z_nat)).item()
+    del diff, bound
+    rel = (lg_emu.double() - lg_nat.double()).abs() / (lg_nat.double().abs() + 1e-6)
+    logit_dev, logits_equal = rel.max().item(), (lg_emu == lg_nat).double().mean().item()
+    del lg_emu, lg_nat, z_emu, z_nat, h, rel
+    leaves = reference_leaves(params)
+
+    def grads(model):
+        loss, _ = loss_fn(model, params, batch)
+        return float(loss.detach()), torch.autograd.grad(loss, list(leaves.values()))
+
+    t0 = time.perf_counter()
+    loss_emu, g_emu = grads(emu)
+    torch.cuda.synchronize()
+    emu_s = time.perf_counter() - t0
+    counts = get_counts()
+    t0 = time.perf_counter()
+    loss_nat, g_nat = grads(nat)
+    torch.cuda.synchronize()
+    nat_s = time.perf_counter() - t0
+    errs = {name: (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+            for name, a, b in zip(leaves, g_emu, g_nat)}
+    worst = sorted(errs, key=errs.get, reverse=True)[:3]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del g_emu, g_nat
+    want = {k: 0 for k in counts}
+    k1 = 2 * fwd + 1 + recompute + bwd  # the logits' forward and GEMM, then the loss's
+    want.update({"K1": k1, "K1 prologue": 2 * k1})
+    check(counts == want, f"FP64 grade: launches {counts}, predicted {want}")
+    print(f"  FP64 grade ({FP64_BATCH} x {FP64_SEQ}, f64 parameters), ozaki2-fp8/accurate (K1 "
+          f"{counts['K1']} launches) vs native f64 (cuBLAS DGEMM), max |d| / (|ref| + 1e-6): "
+          f"lm_head's GEMM in f64 {gemm_dev:.3e} (the reference example's 1e-9; "
+          f"normwise {gemm_norm:.3e}; at most {gemm_bound:.3f} of twice DGEMM's "
+          f"componentwise bound k 2^-53 |h||W|, the gate 1); the model's f32 "
+          f"logits {logit_dev:.3e} (gate one f32 ulp, {F32_ULP:.3e}; {logits_equal:.6%} "
+          f"bitwise equal); gradients normwise, worst leaves "
+          + ", ".join(f"{k} {errs[k]:.3e}" for k in worst)
+          + f" (gate {F32_ULP:.3e}); loss {loss_emu!r} vs {loss_nat!r}; loss + gradient "
+          f"{emu_s:.2f} s vs {nat_s:.2f} s; peak {peak:.2f} GB", flush=True)
+    check(gemm_bound <= 1.0, f"FP64 grade: lm_head's f64 GEMM deviates {gemm_bound} of "
+                             "twice DGEMM's componentwise error bound")
+    check(logit_dev <= F32_ULP, f"FP64 grade: logits deviate {logit_dev} > one f32 ulp")
+    check(errs[worst[0]] <= F32_ULP, f"FP64 grade: {worst[0]}'s gradient deviates "
+                                     f"{errs[worst[0]]}")
+    return {"gemm_dev": gemm_dev, "gemm_normwise": gemm_norm, "gemm_of_bound": gemm_bound,
+            "logit_dev": logit_dev, "logits_bitwise_equal": logits_equal,
+            "grad_dev": {k: errs[k] for k in worst}, "loss": [loss_emu, loss_nat],
+            "seconds": [emu_s, nat_s], "peak_gb": peak, "launches": counts}
+
+
+def determinism_probe(dev) -> dict:
+    """Whether the non-GEMM ops of a training step's backward that
+    accumulate give the same bits twice on the card (without
+    torch.use_deterministic_algorithms): the embedding gather's backward
+    (index_put_ with accumulate), cross-entropy's take_along_dim backward
+    (scatter_add_), and the routed experts' dispatch einsum backward.
+    (c)'s bitwise checks against '+core' rest on them."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    table = torch.randn((512, 2048), generator=gen, device=dev, requires_grad=True)
+    tok = torch.randint(0, 64, (8, 256), generator=gen, device=dev)  # many repeats
+    g_out = torch.randn((8, 256, 2048), generator=gen, device=dev)
+    logp = torch.randn((2048, 49152), generator=gen, device=dev, requires_grad=True)
+    lab = torch.randint(0, 49152, (2048, 1), generator=gen, device=dev)
+    disp = torch.rand((64, 256, 8, 16), generator=gen, device=dev, requires_grad=True)
+    xt = torch.randn((64, 256, 512), generator=gen, device=dev)
+
+    probes = {
+        "embedding gather backward (index_put_ accumulate)":
+            (lambda: (table[tok] * g_out).sum(), table),
+        "take_along_dim backward (scatter_add_)":
+            (lambda: torch.take_along_dim(logp, lab, dim=-1).sum(), logp),
+        "dispatch einsum backward":
+            (lambda: torch.einsum("ngec,ngd->necd", disp, xt).square().sum(), disp)}
+    out = {}
+    for name, (fn, leaf) in probes.items():
+        a, b = (torch.autograd.grad(fn(), leaf)[0] for _ in range(2))
+        out[name] = torch.equal(a, b)
+    print(f"  determinism probe (two runs each): {out}", flush=True)
+    check(all(out.values()), f"an accumulating backward op is not deterministic: {out}")
+    return out
+
+
+def train_smoke_width(args, dev) -> dict:
+    """Phase 12 (c) (module docstring): every family's smoke config, one
+    make_train_step step a policy against its '+core' twin from the same
+    state and batch (loss, gradients, new parameters and moments bitwise),
+    each kernel's launches as predicted. Returns the launch counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.precision import parse_policy
+    from repro_torch.train import make_train_step
+    from repro_torch.train import step as step_mod
+
+    get_counts, zero_counts = serve_counters()
+    launches = {}
+    for a, arch in enumerate(TRAIN_FAMILIES):
+        cfg = get_config(arch, "smoke")
+        batch = synth_batch(DataConfig(seed=args.seed, batch=2, seq_len=8,
+                                       vocab_size=cfg.vocab_size), cfg, a)
+        fwd, recompute, bwd = train_gemms(cfg)
+
+        def run(policy):
+            init, step = make_train_step(Model(dataclasses.replace(cfg, gemm=policy), device=dev),
+                                         AdamWConfig(lr=1e-2, warmup_steps=1))
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(args.seed + a)
+            state = init(gen)
+            grads, update = {}, step_mod.opt_update
+
+            def keep(opt_cfg, g, st, params):
+                grads.update(g)
+                return update(opt_cfg, g, st, params)
+
+            step_mod.opt_update = keep
+            try:
+                zero_counts()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+            finally:
+                step_mod.opt_update = update
+            return metrics, grads, state, get_counts()
+
+        policies = TRAIN_SMOKE_POLICIES + ((TRAIN_INT8_POLICY,) if a == 0 else ())
+        for spec in policies:
+            pol = parse_policy(spec)
+            metrics, grads, state, counts = run(pol)
+            core = dataclasses.replace(pol, backend="core", fused=True)
+            metrics_c, grads_c, state_c, counts_c = run(core)
+            check(all(v == 0 for v in counts_c.values()), f"{arch}: {core.spec} launched a kernel")
+            check(math.isfinite(float(metrics["loss"])), f"{arch} {spec}: loss not finite")
+            check_equal(metrics["loss"], metrics_c["loss"], f"{arch} {spec}: loss vs +core")
+            for k, g in grads.items():
+                check_equal(g, grads_c[k], f"{arch} {spec}: gradient of {k} vs +core")
+            for (k, p), pc in zip(state.params.named_parameters(), state_c.params.parameters()):
+                check_equal(p, pc, f"{arch} {spec}: new {k} vs +core")
+            for k in state.opt.m:
+                check_equal(state.opt.m[k], state_c.opt.m[k], f"{arch} {spec}: m of {k}")
+                check_equal(state.opt.v[k], state_c.opt.v[k], f"{arch} {spec}: v of {k}")
+            want = predicted_launches(spec, pol.moduli_set().n, 0, fwd + recompute + bwd, counts)
+            check(counts == want, f"{arch} {spec}: launches {counts}, predicted {want}")
+            launches.setdefault(arch, {})[spec] = {k: v for k, v in counts.items() if v}
+        print(f"  smoke width {arch} ({cfg.family}): {fwd} forward + {bwd} backward GEMMs a "
+              f"step; {len(policies)} policies, loss, gradients, new parameters and moments "
+              f"== +core (bitwise), launches as predicted: {launches[arch][TRAIN_POLICY]} under "
+              f"{TRAIN_POLICY}", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_resume(args, dev) -> dict:
+    """Phase 12 (c)'s resume: the Trainer at qwen2-7b's smoke width on
+    TRAIN_POLICY, 4 steps straight against 2 steps, a restore from the
+    CheckpointManager and 2 more: per-step losses and the final parameters
+    and moments bitwise."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = get_config("qwen2-7b", "smoke", gemm=TRAIN_POLICY)
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(name, steps):
+            return Trainer(Model(cfg, device=dev), AdamWConfig(lr=1e-2, warmup_steps=1),
+                           DataConfig(seed=args.seed, batch=4, seq_len=8,
+                                      vocab_size=cfg.vocab_size),
+                           TrainerConfig(steps=steps, ckpt_every=2, ckpt_dir=f"{tmp}/{name}",
+                                         microbatches=2, seed=args.seed))
+
+        straight, resumed = [], []
+        want = trainer("straight", 4).run(straight)
+        trainer("resumed", 2).run(resumed)
+        second = trainer("resumed", 4)
+        check(second.init_or_restore()[0] == 2, "the resumed Trainer did not restore step 2")
+        got = second.run(resumed)
+        check([m["loss"] for m in resumed] == [m["loss"] for m in straight],
+              f"resume: losses {[m['loss'] for m in resumed]} vs {[m['loss'] for m in straight]}")
+        for (k, p), q in zip(got.params.named_parameters(), want.params.parameters()):
+            check_equal(p, q, f"resume: {k}")
+        for k in want.opt.m:
+            check_equal(got.opt.m[k], want.opt.m[k], f"resume: m of {k}")
+            check_equal(got.opt.v[k], want.opt.v[k], f"resume: v of {k}")
+        steps = second.ckpt.all_steps()
+    torch.cuda.synchronize()
+    print(f"  resume at qwen2-7b smoke width ({TRAIN_POLICY}): 4 steps straight == 2 steps, "
+          f"restore, 2 more (losses, parameters and moments bitwise); checkpoints {steps}",
+          flush=True)
+    return {"losses": [m["loss"] for m in straight], "checkpoints": steps}
+
+
+def train_phase(args, dev) -> dict:
+    """Phase 12 (module docstring). Returns the kernels line's K1 row at the
+    training shape and the phase's numbers."""
+    import gc
+
+    import torch
+
+    full = train_full_width(args, dev)
+    fp64 = train_fp64_grade(args, dev, full.pop("params"), full.pop("cfg"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    probe = determinism_probe(dev)
+    smoke = train_smoke_width(args, dev)
+    resume = train_resume(args, dev)
+    return {"k1_row": full["k1_row"],
+            "train": {"full_width": full["numbers"], "fp64_grade": fp64, "smoke_width": smoke,
+                      "resume": resume, "determinism_probe": probe}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size", type=int, default=8192,
@@ -2438,6 +3097,11 @@ def main() -> int:
     families = families_phase(args, dev)
     t0 = phase("11 families", t0)
     print(json.dumps({"families": families["families"]}))
+
+    # ---- 12. training: starcoder2-15b at full width, FP64 grade, families --
+    train = train_phase(args, dev)
+    t0 = phase("12 train", t0)
+    print(json.dumps({"train": train["train"]}))
     print(f"total {time.perf_counter() - t_start:.1f} s; DEFAULT_NUM_MODULI "
           f"{DEFAULT_NUM_MODULI}", flush=True)
 
@@ -2449,7 +3113,7 @@ def main() -> int:
                                  if r["policy"] == "ozaki2-fp8/fast")["k2_launches"])
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in (main, k2_main, *unfused_rows, serve["k2_row"],
-                                              families["k2_row"])]}))
+                                              families["k2_row"], train["k1_row"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,10 +27,14 @@ the executor the forward resolved to (on the H100 the kernels; the
 reference runs them on its core path, and both routes give the same bits).
 Ozaki-I differentiates the same way, on core. The emulated-GEMM counters
 (``repro_torch.obs.metrics``) count one call per ``ozmm``; the backward
-records nothing, as in the reference.
+records nothing, as in the reference. Under ``product_store_contexts``
+(a layer's ``remat="dots"`` checkpoint) the forward products are kept and
+replayed in the recompute instead of being computed again.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 
 import torch
@@ -132,6 +136,45 @@ def _record_emulated(scheme: str, mode: str, family: str,
                      m, int(a_shape[-1]), int(b_shape[-1]))
 
 
+#: The forward products of differentiable emulated GEMMs while a layer runs
+#: under ``product_store_contexts``: (the list, whether to replay it).
+_PRODUCTS: contextvars.ContextVar = contextvars.ContextVar("repro_torch_gemm_products",
+                                                           default=None)
+
+
+def _product(fn, a, b) -> torch.Tensor:
+    """``fn(a, b)``, the 2-D product of a differentiable emulated GEMM's
+    forward: recorded, or taken in order from the record, under a store."""
+    store = _PRODUCTS.get()
+    if store is None:
+        return fn(a, b)
+    outs, replay = store
+    if replay:
+        return outs.pop(0)
+    out = fn(a, b)
+    outs.append(out.detach())
+    return out
+
+
+@contextlib.contextmanager
+def _storing(outs: list, replay: bool):
+    token = _PRODUCTS.set((outs, replay))
+    try:
+        yield
+    finally:
+        _PRODUCTS.reset(token)
+
+
+def product_store_contexts():
+    """(forward, recompute) contexts of ``torch.utils.checkpoint``'s
+    ``context_fn`` that keep a checkpointed function's emulated products:
+    the forward records each differentiable emulated GEMM's product, the
+    recompute takes them in the same order and recomputes only the rest
+    (the operands, which the backward's cotangent GEMMs need, and plans)."""
+    outs: list = []
+    return _storing(outs, False), _storing(outs, True)
+
+
 class _PlannedVJP(torch.autograd.Function):
     """Core-route Ozaki-II GEMM whose backward reuses the forward plans: the
     cotangent is sketched once and quantized in both roles, and the
@@ -143,7 +186,7 @@ class _PlannedVJP(torch.autograd.Function):
         qa = quantize_matrix(a, "lhs", ms, mode=mode)
         qb = quantize_matrix(b, "rhs", ms, mode=mode)
         ctx.plans = (qa, qb)
-        return ozmm_prepared(qa, qb)
+        return _product(ozmm_prepared, qa, qb)
 
     @staticmethod
     def backward(ctx, g):
@@ -171,7 +214,7 @@ class _UnpreparedVJP(torch.autograd.Function):
     def forward(ctx, a, b, fn, pol: PrecisionPolicy):
         ctx.save_for_backward(a, b)
         ctx.fn, ctx.pol = fn, pol
-        return fn(a, b)
+        return _product(fn, a, b)
 
     @staticmethod
     def backward(ctx, g):

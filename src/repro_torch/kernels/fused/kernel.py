@@ -84,16 +84,29 @@ def ozmm_fused_raw_ref(mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl, *,
     exact), combine, Garner digits and Kahan sum, so the plain version
     equals the core route by construction."""
     ozmm_fused_raw_ref.calls += 1
-
-    def parts(mh, ml, sc):
-        return quantize.split_residues(
-            [_residue_tile(mh, ml, sc, p, tbl[l]) for l, p in enumerate(ms.ps)], ms)
-
-    cs = residue_products(parts(mh_a, ml_a, e_a + lmu), parts(mh_b, ml_b, e_b + lnu), ms)
-    return crt.reconstruct(crt.garner_digits(cs, ms), ms, lmu[:, 0], lnu[0])
+    return parts_product_plain(raw_split_parts(mh_a, ml_a, e_a + lmu, tbl, ms=ms),
+                               raw_split_parts(mh_b, ml_b, e_b + lnu, tbl, ms=ms), lmu, lnu,
+                               ms=ms)
 
 
 ozmm_fused_raw_ref.calls = 0
+
+
+def raw_split_parts(mh, ml, sc, tbl, *, ms: ModuliSet) -> tuple:
+    """The core route's per-modulus parts (``quantize.split_residues``) of
+    one operand from its raw frames under the exponents ``sc`` (e + lexp):
+    the plain versions' residues, split."""
+    return quantize.split_residues(
+        [_residue_tile(mh, ml, sc, p, tbl[l]) for l, p in enumerate(ms.ps)], ms)
+
+
+def parts_product_plain(pa, pb, lmu, lnu, *, ms: ModuliSet) -> torch.Tensor:
+    """The plain versions' GEMM from both operands' per-modulus parts: the
+    products (exact matmuls of the integer-valued parts), Garner digits and
+    Kahan sum under lmu (m, 1) and lnu (1, n). Output rows and columns are
+    independent, so blocks of A's rows and B's columns give blocks of C."""
+    cs = residue_products(pa, pb, ms)
+    return crt.reconstruct(crt.garner_digits(cs, ms), ms, lmu[:, 0], lnu[0])
 
 
 def _unstack(stacks, ms: ModuliSet) -> list[tuple]:
@@ -112,8 +125,7 @@ def ozmm_fused_parts_ref(sa, sb, lmu, lnu, *, ms: ModuliSet) -> torch.Tensor:
     combine, Garner digits and Kahan sum, so it equals ``ozmm_prepared`` by
     construction."""
     ozmm_fused_parts_ref.calls += 1
-    cs = residue_products(_unstack(sa, ms), _unstack(sb, ms), ms)
-    return crt.reconstruct(crt.garner_digits(cs, ms), ms, lmu[:, 0], lnu[0])
+    return parts_product_plain(_unstack(sa, ms), _unstack(sb, ms), lmu, lnu, ms=ms)
 
 
 ozmm_fused_parts_ref.calls = 0

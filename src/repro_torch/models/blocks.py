@@ -8,17 +8,23 @@ over it; here a stage is an ``nn.ModuleList`` of per-layer blocks and
 Per-layer heterogeneity inside a stage (gemma2's local/global alternation)
 comes from the per-layer window list of ``stage_windows``; structural
 heterogeneity (deepseek's dense prefix, zamba2's shared attention cadence)
-becomes separate stages.
+becomes separate stages. While gradients are recorded, ``cfg.remat``
+checkpoints each layer as the reference's ``_maybe_remat`` does.
 
 Block kinds: "attn_mlp", "attn_moe", "mamba", "encoder", "decoder_cross".
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
+
+from repro_torch.core.gemm import product_store_contexts
+from repro_torch.precision import current_policy, resolve_policy, use_policy
 
 from .attention import AttnTemporal, apply_attention, init_attention
 from .config import ModelConfig
@@ -121,6 +127,39 @@ def block_apply(p: nn.Module, x: torch.Tensor, cfg: ModelConfig, t: AttnTemporal
     return x, (new_attn_cache or {}), aux
 
 
+#: The dispatcher's GEMMs without batch dims, which ``remat="dots"`` keeps
+#: under a native policy (JAX's ``checkpoint_dots_with_no_batch_dims``).
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` checkpointed as ``cfg.remat`` asks while gradients are
+    recorded: "full" keeps only its inputs and recomputes it in the
+    backward; "dots" also keeps its GEMM outputs (the emulated GEMMs'
+    products, or a native policy's mm outputs). The values are the same in
+    every mode. The recompute may run on autograd's device thread, which
+    does not see this thread's precision context, so the policy in effect
+    is pinned around it."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    pol = current_policy()
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = (product_store_contexts if resolve_policy(cfg.gemm).is_emulated
+                            else lambda: ckpt.create_selective_checkpoint_contexts(_dots_policy))
+
+    def pinned(*args):
+        with use_policy(pol) if pol is not None else contextlib.nullcontext():
+            return fn(*args)
+
+    return lambda *args: ckpt.checkpoint(pinned, *args, use_reentrant=False, **kw)
+
+
 def stage_apply(stage_params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
                 t: AttnTemporal, windows: list, stage_cache: Optional[list],
                 kind: str, shared_attn_params: Optional[Block] = None,
@@ -129,17 +168,23 @@ def stage_apply(stage_params: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     per layer (None when not serving). With ``shared_attn_params`` (zamba2)
     the shared block is woven in after each layer, its cache under the
     layer's ``"shared"``. Returns (x, new_stage_cache, aux)."""
-    aux = 0.0
-    new_caches = []
-    for i, lp in enumerate(stage_params):
-        cache_l = stage_cache[i] if stage_cache else {}
-        x, co, a = block_apply(lp, x, cfg, t, windows[i], cache_l, kind, enc_memory)
+
+    def one_layer(x, lp, window, cache_l):
+        xo, co, a = block_apply(lp, x, cfg, t, window, cache_l, kind, enc_memory)
         if shared_attn_params is not None:
-            x, c_sh, a2 = block_apply(shared_attn_params, x, cfg, t, GLOBAL_WINDOW,
-                                      cache_l.get("shared", {}), "attn_mlp")
+            xo, c_sh, a2 = block_apply(shared_attn_params, xo, cfg, t, GLOBAL_WINDOW,
+                                       cache_l.get("shared", {}), "attn_mlp")
             if cache_l:
                 co = dict(co, shared=c_sh)
             a = a + a2
+        return xo, co, a
+
+    if not stage_cache:  # caches are written in place: never recomputed
+        one_layer = _maybe_remat(one_layer, cfg)
+    aux = 0.0
+    new_caches = []
+    for i, lp in enumerate(stage_params):
+        x, co, a = one_layer(x, lp, windows[i], stage_cache[i] if stage_cache else {})
         aux += a
         new_caches.append(co)
     return x, (new_caches if stage_cache else []), aux

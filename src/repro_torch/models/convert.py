@@ -3,7 +3,10 @@ loads the params pytree of the JAX package's ``Model.init`` (its leaves as
 numpy arrays; a stage's leaves stacked on a leading layer axis, MoE expert
 stacks as (layers, E, d, ff)) onto the port's module tree, layer i of a
 stage from slice i, so both packages compute the same function from the
-same weights."""
+same weights; ``train_state_from_reference`` carries a whole training
+state across. ``reference_leaves`` lists the port's leaves in the order
+JAX flattens the reference's params (dict keys sorted, a stage's layers
+together), the order the optimizer sums the gradient norm in."""
 from __future__ import annotations
 
 from typing import Callable
@@ -84,3 +87,76 @@ def params_from_reference(model: Model, tree: dict) -> CausalLM:
         extra["mtp"] = MTP(t(m["proj"]), _block(m["block"], t), t(m["norm_h"]), t(m["norm_e"]))
     return CausalLM(t(tree["embed"]), stages, t(tree["final_norm"]),
                     t(tree["lm_head"]) if "lm_head" in tree else None, **extra)
+
+
+def reference_path(name: str) -> tuple[tuple, int | None]:
+    """A port parameter name as the reference's path and the layer it holds
+    in a stacked stage leaf: 'stages.1.0.moe.router' -> (("stages", 1,
+    "moe", "router"), 0); 'shared_attn.attn.wq' -> (("shared_attn", "attn",
+    "wq"), None)."""
+    parts, path, layer, i = name.split("."), [], None, 0
+    while i < len(parts):
+        if parts[i] == "stages":
+            path += ["stages", int(parts[i + 1])]
+            layer, i = int(parts[i + 2]), i + 3
+        else:
+            path.append(parts[i])
+            i += 1
+    return tuple(path), layer
+
+
+def reference_leaves(params: nn.Module) -> dict:
+    """The parameters of ``params``, name -> tensor, in the reference's leaf
+    order."""
+    def key(item):
+        path, layer = reference_path(item[0])
+        return path, -1 if layer is None else layer
+
+    return dict(sorted(params.named_parameters(), key=key))
+
+
+def _q8_leaf(q, layer: int | None, signed: bool, device):
+    """The port's Q8 of one leaf from the reference's Q8 ``q`` (numpy
+    children) of the leaf or, with ``layer``, of its stacked stage leaf:
+    the reference's blocks where they hold this layer alone, else the
+    layer's dequantized values quantized again."""
+    from repro_torch.optim import BLOCK, Q8, quantize
+
+    qq, scale, shape = np.asarray(q.q), np.asarray(q.scale), tuple(q.shape)
+    t = lambda a: torch.from_numpy(np.array(a)).to(device)
+    if layer is None:
+        return Q8(t(qq), t(scale), shape)
+    n = int(np.prod(shape[1:]))
+    if n % BLOCK == 0:
+        nb = n // BLOCK
+        return Q8(t(qq[layer * n:(layer + 1) * n]), t(scale[layer * nb:(layer + 1) * nb]),
+                  shape[1:])
+    denom = np.float32(127.0 if signed else 255.0)
+    flat = (qq.reshape(-1, BLOCK).astype(np.float32) * (scale[:, None] / denom)).reshape(-1)
+    return quantize(t(flat[:int(np.prod(shape))].reshape(shape)[layer]), signed=signed)
+
+
+def train_state_from_reference(model: Model, ref_state):
+    """The port's ``train.TrainState`` holding the reference's TrainState
+    ``ref_state`` (numpy leaves): its params (``params_from_reference``,
+    made trainable), step, and m and v leaf for leaf (f32, or Q8)."""
+    from repro_torch.optim import OptState
+    from repro_torch.train.step import TrainState
+
+    params = params_from_reference(model, ref_state.params).requires_grad_(True)
+    dev = model.device
+
+    def moment(tree, name: str, signed: bool):
+        path, layer = reference_path(name)
+        for k in path:
+            tree = tree[k]
+        if hasattr(tree, "scale"):
+            return _q8_leaf(tree, layer, signed, dev)
+        arr = np.asarray(tree)
+        return torch.from_numpy(np.array(arr if layer is None else arr[layer])).to(dev)
+
+    names = list(reference_leaves(params))
+    opt = ref_state.opt
+    step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32, device=dev)
+    return TrainState(params, OptState(step, {k: moment(opt.m, k, True) for k in names},
+                                       {k: moment(opt.v, k, False) for k in names}))

@@ -28,7 +28,8 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A parameter the serving path reads and never differentiates."""
+    """A parameter as ``init`` and the converters make it: frozen, as
+    serving reads it; the training state makes it require grad."""
     return nn.Parameter(t, requires_grad=False)
 
 

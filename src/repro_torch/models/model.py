@@ -9,6 +9,7 @@ params pytree, so the serve weight cache can hand the same functions a copy
 whose matmul weights are prepared plans. Entry points:
 
   init(generator)                      -> params (CausalLM)
+  forward_train(params, batch)         -> TrainOutput(logits, aux_loss, mtp_logits)
   init_cache(params, batch, max_len)   -> cache (serving, aligned batch;
                                           encodes batch["frames"] for encdec)
   prefill(params, batch, cache)        -> (last-position logits, cache)
@@ -18,12 +19,13 @@ whose matmul weights are prepared plans. Entry points:
 
 Caches are updated in place (attention) or replaced (SSM state) and
 returned. The model runs on the card unless built with ``device="cpu"``.
-``forward_train`` is not ported yet (ROADMAP Queue A item 5).
+The parameters are frozen as ``init`` draws them (serving); the training
+state (``repro_torch.train``) makes them require grad.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -36,6 +38,12 @@ from .blocks import (GLOBAL_WINDOW, Block, StageSpec, block_apply, block_init, s
 from .config import ModelConfig, validate
 from .layers import dtype_of, embed_init, frozen, matmul, rmsnorm, softcap, zeros
 from .ssm import init_ssm_state
+
+
+class TrainOutput(NamedTuple):
+    logits: torch.Tensor
+    aux_loss: torch.Tensor
+    mtp_logits: Optional[torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,8 +93,7 @@ class Encoder(nn.Module):
 
 class MTP(nn.Module):
     """deepseek-v3's multi-token-prediction head (``proj``, ``block``,
-    ``norm_h``, ``norm_e``); carried so that weights convert, read only by
-    training."""
+    ``norm_h``, ``norm_e``), read only by ``forward_train``."""
 
     def __init__(self, proj, block: Block, norm_h, norm_e):
         super().__init__()
@@ -193,21 +200,24 @@ class Model:
 
     def _run_stages(self, params: CausalLM, x, t: AttnTemporal, cache_stages,
                     enc_memory=None):
+        """Returns (x, new stage caches, the stages' summed aux loss)."""
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         new_caches = []
         for i, entry in enumerate(self.stages):
             spec = entry.spec
             cache_i = cache_stages[i] if cache_stages is not None else None
             if spec.shared_attn:  # zamba2's shared transformer block
-                x, c_new, _ = block_apply(params.shared_attn, x, cfg, t, GLOBAL_WINDOW,
+                x, c_new, a = block_apply(params.shared_attn, x, cfg, t, GLOBAL_WINDOW,
                                           cache_i[0] if cache_i else {}, "attn_mlp")
                 c_new = [c_new] if cache_i else []
             else:
-                x, c_new, _ = stage_apply(params.stages[i], x, cfg, t,
+                x, c_new, a = stage_apply(params.stages[i], x, cfg, t,
                                           stage_windows(cfg, spec, entry.offset), cache_i,
                                           spec.kind, enc_memory=enc_memory)
+            aux = aux + a
             new_caches.append(c_new)
-        return x, new_caches
+        return x, new_caches, aux
 
     def _logits(self, params: CausalLM, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -224,10 +234,33 @@ class Model:
         return torch.arange(s, dtype=torch.int32, device=self.device).expand(b, s)
 
     # ----------------------------------------------------------------- train
-    def forward_train(self, params, batch):
-        raise NotImplementedError(
-            "forward_train is not ported to repro_torch yet; training "
-            "(forward_train, train, optim) is ROADMAP Queue A item 5's next step")
+    def forward_train(self, params: CausalLM, batch: dict) -> TrainOutput:
+        """Logits of every position of ``batch`` ({"tokens"}, plus "frames"
+        for encdec and "patch_embeds" for a vit-stub frontend), the stages'
+        aux loss and, with an MTP head, its logits (deepseek-v3: position t
+        predicts token t+2 from h_t and the embedding of token t+1)."""
+        cfg = self.cfg
+        enc_memory = self._encode(params, batch["frames"]) if cfg.family == "encdec" else None
+        x = self._embed_inputs(params, batch["tokens"], batch.get("patch_embeds"))
+        b, s = x.shape[:2]
+        t = AttnTemporal(positions=self._positions(b, s), cache_len=None, pos=None)
+        x, _, aux = self._run_stages(params, x, t, None, enc_memory)
+        logits = self._logits(params, x)
+
+        mtp_logits = None
+        if cfg.mtp_depth and hasattr(params, "mtp"):
+            # h'_t = Block(W [norm(h_t); norm(emb(tok_{t+1}))])
+            mtp = params.mtp
+            toks = self._tokens(batch["tokens"])
+            emb_next = params.embed[torch.roll(toks, -1, dims=1)].to(self.dtype)
+            prefix = x[:, -toks.shape[1]:, :]  # text positions only (vlm-safe)
+            cat = torch.cat([rmsnorm(prefix, mtp.norm_h, cfg.norm_eps),
+                             rmsnorm(emb_next, mtp.norm_e, cfg.norm_eps)], dim=-1)
+            h = matmul(cat, mtp.proj, cfg.gemm)
+            tt = AttnTemporal(positions=self._positions(*h.shape[:2]), cache_len=None, pos=None)
+            h, _, _ = block_apply(mtp.block, h, cfg, tt, GLOBAL_WINDOW, {}, "attn_mlp")
+            mtp_logits = self._logits(params, h)
+        return TrainOutput(logits, aux, mtp_logits)
 
     # ----------------------------------------------------------------- serve
     def _attn_cache(self, lead: tuple) -> dict:
@@ -287,7 +320,8 @@ class Model:
         x = self._embed_inputs(params, batch["tokens"], batch.get("patch_embeds"))
         b, s = x.shape[:2]
         t = AttnTemporal(positions=self._positions(b, s), cache_len=s, pos=None)
-        x, new_stages = self._run_stages(params, x, t, cache["stages"], cache.get("enc_memory"))
+        x, new_stages, _ = self._run_stages(params, x, t, cache["stages"],
+                                            cache.get("enc_memory"))
         logits = self._logits(params, x[:, -1:, :])
         return logits[:, 0], dict(cache, stages=new_stages, pos=s)
 
@@ -299,7 +333,8 @@ class Model:
         t = AttnTemporal(positions=torch.full((b, 1), pos, dtype=torch.int32,
                                               device=self.device),
                          cache_len=None, pos=pos)
-        x, new_stages = self._run_stages(params, x, t, cache["stages"], cache.get("enc_memory"))
+        x, new_stages, _ = self._run_stages(params, x, t, cache["stages"],
+                                            cache.get("enc_memory"))
         logits = self._logits(params, x)
         return logits[:, 0], dict(cache, stages=new_stages, pos=pos + 1)
 
@@ -316,7 +351,7 @@ class Model:
         t = AttnTemporal(positions=self._positions(b, s), cache_len=s, pos=None,
                          lengths=lengths,
                          block_tables=torch.as_tensor(block_tables, device=self.device))
-        x, new_stages = self._run_stages(params, x, t, cache["stages"])
+        x, new_stages, _ = self._run_stages(params, x, t, cache["stages"])
         last = x[torch.arange(b, device=x.device), lengths.long() - 1][:, None]
         logits = self._logits(params, last)
         return logits[:, 0], dict(cache, stages=new_stages)
@@ -332,6 +367,7 @@ class Model:
             block_tables = torch.as_tensor(block_tables, device=self.device)
         t = AttnTemporal(positions=positions[:, None], cache_len=None, pos=positions,
                          block_tables=block_tables)
-        x, new_stages = self._run_stages(params, x, t, cache["stages"], cache.get("enc_memory"))
+        x, new_stages, _ = self._run_stages(params, x, t, cache["stages"],
+                                            cache.get("enc_memory"))
         logits = self._logits(params, x)
         return logits[:, 0], dict(cache, stages=new_stages)

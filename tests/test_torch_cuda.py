@@ -6,7 +6,9 @@ quant_residues with its frame and f64 entries) against their plain
 versions on the card, bitwise; accurate scaling's bound GEMM under the
 global TF32 switch; and the serving path: K2 on a cached weight plan at a
 decode batch's few rows, and the smoke engine (qwen2-7b; the MoE and MLA
-families' moonshot and deepseek) on the kernel routes against '+core'.
+families' moonshot and deepseek) on the kernel routes against '+core';
+training: one train step at smoke width on the kernel route against
+'+core', and a checkpoint round trip of a train state on the card.
 Every test here is marked ``cuda`` and
 skips without a CUDA device.
 
@@ -736,3 +738,60 @@ def test_moe_smoke_engine_on_card_equals_core(arch, monkeypatch):
     toks_c, rows_c = run(dataclasses.replace(pol, backend="core", fused=True))
     assert toks == toks_c and len(rows) == len(rows_c) == 9
     assert all(torch.equal(a, b) for a, b in zip(rows, rows_c))
+
+
+def _train_step_on_card(spec: str):
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+
+    cfg = get_config("qwen2-7b", "smoke", gemm=spec)
+    init, step = make_train_step(Model(cfg, device="cuda"), AdamWConfig(lr=1e-2, warmup_steps=1),
+                                 microbatches=2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    state = init(gen)
+    state, metrics = step(state, synth_batch(DataConfig(batch=4, seq_len=8), cfg, 0))
+    return state, metrics
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_equals_core():
+    """One make_train_step step (two microbatches) at qwen2-7b's smoke width:
+    on backend auto (K1 for every GEMM and both cotangent GEMMs) the loss,
+    the gradient norm and the new parameters and moments equal the '+core'
+    route's bitwise."""
+    _need_card()
+    launches = fused.ozmm_fused_raw.launches
+    state, metrics = _train_step_on_card("ozaki2-fp8/fast")
+    assert fused.ozmm_fused_raw.launches > launches
+    state_c, metrics_c = _train_step_on_card("ozaki2-fp8/fast+core")
+    for k in ("loss", "grad_norm"):
+        assert torch.equal(metrics[k], metrics_c[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(state.params.parameters(),
+                                                 state_c.params.parameters()))
+    assert all(torch.equal(state.opt.m[k], state_c.opt.m[k]) for k in state.opt.m)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(tmp_path):
+    """A train state on the card saved and restored into a fresh one: every
+    leaf equal, on the card."""
+    _need_card()
+    from repro_torch.checkpoint import CheckpointManager
+
+    state, _ = _train_step_on_card("ozaki2-fp8/fast")
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, state)
+    mgr.wait()
+    fresh, _ = _train_step_on_card("ozaki2-fp8/fast")
+    with torch.no_grad():
+        for p in fresh.params.parameters():
+            p.zero_()
+    step, restored = mgr.restore(fresh)
+    assert step == 1 and restored is fresh and int(fresh.opt.step) == 1
+    for a, b in zip(fresh.params.parameters(), state.params.parameters()):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    assert all(torch.equal(fresh.opt.v[k], state.opt.v[k]) for k in state.opt.v)

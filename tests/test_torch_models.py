@@ -167,7 +167,8 @@ def test_slot_paths_paged_and_dense(native_pair):
 
 def test_unported_families_raise():
     """Every config builds and serves through the port (prefill +
-    decode_step); forward_train is still not ported and says so."""
+    decode_step), and trains: forward_train (ported since) gives finite
+    logits of every position and an f32 aux loss."""
     from repro_torch.configs import ARCHS, get_config
     from repro_torch.models import Model
 
@@ -188,8 +189,12 @@ def test_unported_families_raise():
         logits, cache = model.decode_step(params, logits.argmax(-1), cache)
         assert logits.shape == (1, cfg.padded_vocab), arch
         assert torch.isfinite(logits[:, :cfg.vocab_size]).all(), arch
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_config("qwen2-7b", "smoke"), device="cpu").forward_train(None, {})
+        with torch.no_grad():
+            out = model.forward_train(params, batch)
+        positions = 3 + (cfg.frontend_len if cfg.frontend == "vit-stub" else 0)
+        assert out.logits.shape == (1, positions, cfg.padded_vocab), arch
+        assert torch.isfinite(out.logits[..., :cfg.vocab_size]).all(), arch
+        assert out.aux_loss.dtype == torch.float32 and torch.isfinite(out.aux_loss), arch
 
 
 def test_model_runs_on_the_card_unless_asked():
