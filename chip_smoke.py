@@ -6,6 +6,8 @@
     python3 chip_smoke.py --serve-layers 2          # phase 10 at depth 2
     python3 -c 'import chip_smoke as c, torch, argparse; c.train_phase(
         argparse.Namespace(seed=0), torch.device("cuda"))'  # phase 12 alone
+    python3 -c 'import chip_smoke as c, torch, argparse; c.dist_phase(argparse.Namespace(
+        seed=0, size=8192, hpl_n=8192), torch.device("cuda"), [])'  # phase 13 alone
 
 Phases, each printing its elapsed time; any failed check raises and the
 script exits non-zero without printing a result:
@@ -47,9 +49,8 @@ script exits non-zero without printing a result:
    int8) products through torch._scaled_mm (torch._int_mm), yardsticks the
    port never calls.
 7. linalg on the card: run_hpl(n, policy, block=128, refine_steps=1) for
-   native (cuBLAS DGEMM through the same driver), ozaki2-fp8/fast (K2 on
-   every trailing update and TRSM fold) and ozaki2-fp8/accurate (K1 on the
-   prepared pairs), each scaled residual <= 16 and each kernel's launch
+   ozaki2-fp8/fast (K2 on every trailing update and TRSM fold) and
+   ozaki2-fp8/accurate (K1 on the prepared pairs), each scaled residual <= 16 and each kernel's launch
    count (and its prologue's or transpose's) moving by the count the code
    predicts, with the time split between the kernels, the rest of the GEMM
    layer and the host, and K2's time a launch; each kernel at the inputs of
@@ -173,8 +174,9 @@ script exits non-zero without printing a result:
    lm_head decode shape (4 x 2048 x 163840). (c) the smoke widths of
    deepseek-v3 (MLA + MoE, paged latent cache), moonshot, mamba2, zamba2
    (shared block), seamless-m4t (encoder memory of audio frames,
-   cross-attention; Model.init_cache / prefill / decode_step) and internvl2
-   (patch embeddings; the same) under ozaki2-fp8/fast and each policy of
+   cross-attention; Model.init_cache / prefill / decode_step), internvl2
+   (patch embeddings; the same) and gemma2 (softcaps, alternating sliding
+   window, post-norms, tied head) under ozaki2-fp8/fast and each policy of
    phase 10's smoke width: tokens and logits bitwise equal to the '+core'
    twin, each kernel's launches as predicted.
 
@@ -203,8 +205,9 @@ script exits non-zero without printing a result:
    reference example's max |d| / (|ref| + 1e-6) < 1e-9 is reported: the
    model's f32 islands and near-zero logits put it out of reach here). (c) the smoke configs of qwen2-7b, starcoder2,
    moonshot (MoE aux), deepseek-v3 (MLA + MoE + MTP), mamba2 (tied head),
-   zamba2 (shared block), seamless-m4t (frames) and internvl2 (patches,
-   masked labels): one make_train_step step under ozaki2-fp8/fast (K1) and
+   zamba2 (shared block), seamless-m4t (frames), internvl2 (patches,
+   masked labels) and gemma2 (softcaps, post-norms, tied head): one
+   make_train_step step under ozaki2-fp8/fast (K1) and
    ozaki2-fp8/accurate+unfused (K6, K3, K5), and ozaki2-int8/fast+unfused
    (K6, K4, K5) for qwen2-7b, each against its '+core' twin from the same
    state and batch (loss, gradients, new parameters and moments bitwise),
@@ -216,9 +219,31 @@ script exits non-zero without printing a result:
    torch.use_deterministic_algorithms: the probe found all three
    deterministic on the card).
 
+13. distributed (core.distributed, linalg.dist), every rank on the card:
+   (a) ozmm_mn_sharded (accurate: pair_exponents + K1 a shard; fast: K2)
+   and ozmm_k_sharded (fp8 fast and accurate: K6 and 3N K3 a shard; int8
+   fast: K6 and N K4) at --size^3 on a 2 x 4 mesh of the card, launches as
+   predicted; k-sharded fast (fp8, int8) and mn-sharded fast bitwise equal
+   to the single-device ozmm; every mn block and every k shard's residue
+   products bitwise equal to '+core' on that shard; accurate gates on 8
+   rows against a long-double product (componentwise over |A||B|: < 2^-49,
+   k-sharded <= 4x the unsharded error); each strategy's ms beside the
+   single-device ozmm and cuBLAS DGEMM; K1/K2/K3/K4/K6 at their first shard
+   shape bitwise against their plain versions and timed. (b) lu_factor_dist
+   under ozaki2-fp8/fast at n = --hpl-n / 2, block 128, 2 x 2, plan and f64
+   wires, and a ragged n (2000 by default) on 4 x 1: pivots and factors
+   bitwise equal to the single-device lu_factor, K2 (plans) or K1 (f64)
+   launches as predicted,
+   bytes on the wire, the time by stage. (c) run_hpl_dist under
+   ozaki2-fp8/accurate at n = --hpl-n, 2 x 2: the HPL gate, K1 launches as
+   predicted (trailing updates, the solves' rank GEMMs, the refinement
+   residuals' rank matvecs), seconds, GFLOP/s and the split by stage beside
+   phase 7's single-device run.
+
 The last two lines are the card (nvidia-smi name, power limit) and
 {"ok": true, "device": {...}}; before them a {"kernels": [...]} line, whose
-last row is K1 at phase 12's training shape, with phase 12 (a)'s launches.
+rows are the main path's kernels and then each phase's rows; the last five
+are K1, K2, K3, K4 and K6 at phase 13's shard shapes, with (a)'s launches.
 """
 from __future__ import annotations
 
@@ -250,7 +275,11 @@ POLICIES = ("ozaki2-fp8/fast", "ozaki2-fp8/accurate", "ozaki2-karatsuba/fast",
 UNFUSED = "+pallas+unfused"
 #: Prepared (fast-mode) pairings run on K2.
 K2_POLICIES = ("ozaki2-fp8/fast", "ozaki2-karatsuba/fast", "ozaki2-int8/fast")
-HPL_POLICIES = ("native", "ozaki2-fp8/fast", "ozaki2-fp8/accurate")
+#: Phase 7's HPL runs. "native" (cuBLAS DGEMM through the same driver, no
+#: kernel of the port; 37.7-63.4 s at n = 8192 on an H100 80GB HBM3 at
+#: 700.00 W, by the host's speed) is no longer run, to keep the whole run,
+#: with phase 13, well under its limit.
+HPL_POLICIES = ("ozaki2-fp8/fast", "ozaki2-fp8/accurate")
 HPL_BLOCK = 128
 #: Timed runs of K1's plain version (~1.3 s each at 8192^3); 3 rather than 5
 #: keeps the whole run near half its time limit.
@@ -1638,7 +1667,7 @@ def serve_smoke_width(args, dev) -> dict:
 #: below; then the smoke widths of the six configs of the families.
 FAMILY_FULL = (("moonshot-v1-16b-a3b", 3), ("mamba2-2.7b", 2))
 FAMILY_ARCHS = ("deepseek-v3-671b", "moonshot-v1-16b-a3b", "mamba2-2.7b", "zamba2-1.2b",
-                "seamless-m4t-medium", "internvl2-26b")
+                "seamless-m4t-medium", "internvl2-26b", "gemma2-27b")
 #: Logits of runs that need not be bitwise (the tests' LOGIT_RTOL): |a - b|
 #: <= LOGIT_RTOL * max|b|.
 LOGIT_RTOL = 1e-5
@@ -2062,7 +2091,8 @@ FP64_BATCH, FP64_SEQ, F32_ULP = 2, 128, 2.0 ** -23
 #: (c): the smoke configs trained one step each under these policies (and
 #: ozaki2-int8/fast+unfused on the first), against their '+core' twins.
 TRAIN_FAMILIES = ("qwen2-7b", "starcoder2-15b", "moonshot-v1-16b-a3b", "deepseek-v3-671b",
-                  "mamba2-2.7b", "zamba2-1.2b", "seamless-m4t-medium", "internvl2-26b")
+                  "mamba2-2.7b", "zamba2-1.2b", "seamless-m4t-medium", "internvl2-26b",
+                  "gemma2-27b")
 TRAIN_SMOKE_POLICIES = ("ozaki2-fp8/fast", "ozaki2-fp8/accurate+unfused")
 TRAIN_INT8_POLICY = "ozaki2-int8/fast+unfused"
 
@@ -2653,6 +2683,360 @@ def train_phase(args, dev) -> dict:
                       "resume": resume, "determinism_probe": probe}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the distributed paths (core.distributed, linalg.dist)
+# ---------------------------------------------------------------------------
+
+#: (a)'s mesh: 2 x 4 ranks ("data", "model"), every one on the card.
+DIST_MESH = (2, 4)
+#: (b): the fast LU's grid; the ragged case's grid, at half the other's n
+#: less 48 (2000 = 15 x 128 + 80 at the default size).
+DIST_GRID, DIST_RAGGED = (2, 2), (48, (4, 1))
+DIST_FAST, DIST_ACCURATE = "ozaki2-fp8/fast", "ozaki2-fp8/accurate"
+#: The 8-row sample of (a)'s accurate gates, held against a long-double product.
+GATE_ROWS = 8
+
+
+def dist_lu_updates(n: int, block: int, P: int, Q: int) -> int:
+    """Rank GEMMs of lu_factor_dist's trailing updates: at every block step
+    but the last, one per rank that owns trailing rows and columns."""
+    nb = -(-n // block)
+    total = 0
+    for K in range(nb - 1):
+        rows = sum(1 for p in range(P) if any(i % P == p for i in range(K + 1, nb)))
+        cols = sum(1 for q in range(Q) if any(j % Q == q for j in range(K + 1, nb)))
+        total += rows * cols
+    return total
+
+
+def dist_solve_gemms(n: int, block: int, P: int) -> int:
+    """Rank GEMMs of one lu_solve_dist: at block step K of the forward sweep
+    one per process row owning a block row below K, of the backward sweep
+    one per process row owning a block row above it."""
+    nb = -(-n // block)
+    fwd = sum(1 for K in range(nb) for p in range(P) if any(i % P == p for i in range(K + 1, nb)))
+    bwd = sum(1 for K in range(nb) for p in range(P) if any(i % P == p for i in range(K)))
+    return fwd + bwd
+
+
+def long_double_rows(a, b, rows):
+    """Rows ``rows`` of a @ b in numpy's long double (64-bit mantissa on x86:
+    its error, k 2^-64 |a||b|, is 2^-11 of the gate it serves), and of
+    |a| @ |b| in f64."""
+    import numpy as np
+
+    ar, bn = a[rows].cpu().numpy(), b.cpu().numpy()
+    exact = ar.astype(np.longdouble) @ bn.astype(np.longdouble)
+    return exact, np.abs(ar) @ np.abs(bn)
+
+
+def dist_gemm_phase(args, dev) -> tuple[list, dict]:
+    """Phase 13 (a): the sharded GEMMs at args.size^3 on a 2 x 4 mesh of the
+    card. Returns the kernels line's rows (K1, K2, K3, K4, K6 at the shard
+    shapes, with (a)'s launches) and the phase's numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as kn
+    from repro_torch import ozmm
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.moduli import make_moduli_set
+    from repro_torch.kernels import pipeline
+    from repro_torch.kernels.fused import (KERNEL_TILE, fused_parts_args, ops,
+                                           ozmm_fused_parts, ozmm_fused_parts_ref, ozmm_fused_raw,
+                                           ozmm_fused_raw_ref, transpose_parts)
+    from repro_torch.kernels.quant_residues import ops as qr_ops
+    from repro_torch.launch import make_mesh
+
+    big = args.size
+    P, Q = DIST_MESH
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 13)
+    a = lognormal(gen, (big, big), 0.5, dev)
+    b = lognormal(gen, (big, big), 0.5, dev)
+    mesh = make_mesh(DIST_MESH, ("data", "model"), devices=dev)
+    get_counts, zero_counts = serve_counters()
+    hyb, i8 = make_moduli_set("fp8-hybrid", 12), make_moduli_set("int8", 14)
+    cases = {  # name -> (call, moduli set, predicted launches)
+        "mn accurate": (lambda: dist.ozmm_mn_sharded(a, b, mesh, mode="accurate"), hyb,
+                        {"K1": P * Q, "K1 prologue": 2 * P * Q}),
+        "mn fast": (lambda: dist.ozmm_mn_sharded(a, b, mesh, mode="fast"), hyb,
+                    {"K2": P * Q, "K2 transpose": P * Q}),
+        "k fast": (lambda: dist.ozmm_k_sharded(a, b, mesh, mode="fast"), hyb,
+                   {"K6": 2 * Q, "K3": 3 * hyb.n * Q}),
+        "k accurate": (lambda: dist.ozmm_k_sharded(a, b, mesh, mode="accurate"), hyb,
+                       {"K6": 2 * Q, "K3": 3 * hyb.n * Q}),
+        "k int8 fast": (lambda: dist.ozmm_k_sharded(a, b, mesh, family="int8", mode="fast"), i8,
+                        {"K6": 2 * Q, "K4": i8.n * Q}),
+    }
+    outs, launches = {}, {}
+    with FirstCallPerShape(ops, "ozmm_fused_raw") as c1, \
+            FirstCallPerShape(ops, "ozmm_fused_parts") as c2, \
+            FirstCallPerShape(pipeline, "fp8_gemm") as c3, \
+            FirstCallPerShape(pipeline, "int8_gemm") as c4, \
+            FirstCallPerShape(qr_ops, "quant_residues_f64") as c6:
+        for name, (call, _, want) in cases.items():
+            zero_counts()
+            outs[name] = call()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in get_counts().items() if v}
+            check(counts == want, f"sharded {name}: launches {counts}, predicted {want}")
+            launches[name] = counts
+            print(f"  sharded {name} {big}^3 on a {P}x{Q} mesh of {dev}: launches {counts} "
+                  "as predicted", flush=True)
+    # (a) checks: the single-device ozmm, each shard against +core
+    single = {spec: ozmm(a, b, spec) for spec in
+              ("ozaki2-fp8/fast", "ozaki2-fp8/accurate", "ozaki2-int8/fast")}
+    check_equal(outs["k fast"], single["ozaki2-fp8/fast"], "k-sharded fast vs single-device ozmm")
+    check_equal(outs["mn fast"], single["ozaki2-fp8/fast"], "mn-sharded fast vs single-device ozmm")
+    check_equal(outs["k int8 fast"], single["ozaki2-int8/fast"],
+                "k-sharded int8 fast vs single-device ozmm")
+    rb, cb = big // P, big // Q
+    for mode in ("accurate", "fast"):
+        for i in range(P):
+            for j in range(Q):
+                rs, cs = slice(i * rb, (i + 1) * rb), slice(j * cb, (j + 1) * cb)
+                core = dist.mn_shard(a[rs], b[:, cs], hyb, mode, "core")
+                check_equal(outs[f"mn {mode}"][rs, cs], core,
+                            f"mn-sharded {mode} block ({i}, {j}) vs +core on that block")
+                del core
+    kb = big // Q
+    for name, ms, mode in (("k fast", hyb, "fast"), ("k accurate", hyb, "accurate"),
+                           ("k int8 fast", i8, "fast")):
+        a_sh = [a[:, s * kb:(s + 1) * kb] for s in range(Q)]
+        b_sh = [b[s * kb:(s + 1) * kb] for s in range(Q)]
+        lmu, lnu = dist.k_sharded_exponents(a_sh, b_sh, big, ms, mode, dev)
+        for s in range(Q):
+            kern = dist.k_shard_residues(a_sh[s], b_sh[s], lmu, lnu, ms, "pallas")
+            core = dist.k_shard_residues(a_sh[s], b_sh[s], lmu, lnu, ms, "core")
+            for l, (x, y) in enumerate(zip(kern, core)):
+                check_equal(x, y, f"k-sharded {name} shard {s} modulus {l}: kernels vs +core")
+            del kern, core
+        torch.cuda.empty_cache()
+    print(f"  sharded: k fast (fp8, int8) and mn fast == single-device ozmm; every mn block "
+          f"(both modes) and every k shard's residue products == +core (bitwise)", flush=True)
+    rows = list(range(0, big, big // GATE_ROWS))[:GATE_ROWS]
+    exact, denom = long_double_rows(a, b, rows)
+    errs = {}
+    for name, c in (("k accurate", outs["k accurate"]), ("single", single["ozaki2-fp8/accurate"]),
+                    ("mn accurate", outs["mn accurate"])):
+        errs[name] = float(np.max(np.abs(c[rows].cpu().numpy() - exact) / denom))
+    check(errs["k accurate"] < 2.0 ** -49, f"k-sharded accurate error {errs['k accurate']} "
+                                           ">= 2^-49")
+    check(errs["k accurate"] <= 4 * max(errs["single"], 2.0 ** -53),
+          f"k-sharded accurate error {errs['k accurate']} > 4x the unsharded {errs['single']}")
+    check(errs["mn accurate"] < 2.0 ** -49, f"mn-sharded accurate error {errs['mn accurate']}")
+    print(f"  accurate gates on {GATE_ROWS} rows vs a long-double product (componentwise, over "
+          f"|A||B|): k-sharded {errs['k accurate']:.3e}, mn-sharded {errs['mn accurate']:.3e}, "
+          f"single-device {errs['single']:.3e} (gates 2^-49 = {2.0 ** -49:.3e}, 4x single)",
+          flush=True)
+    del outs, single
+    torch.cuda.empty_cache()
+
+    # timings: each strategy beside the single-device ozmm and cuBLAS DGEMM
+    times = {name: cuda_ms(call, 3) for name, (call, _, _) in cases.items()}
+    for spec in ("ozaki2-fp8/fast", "ozaki2-fp8/accurate", "ozaki2-int8/fast"):
+        times[f"single {spec}"] = cuda_ms(lambda: ozmm(a, b, spec), 3)
+    times["cuBLAS DGEMM"] = cuda_ms(lambda: torch.matmul(a, b))
+    print("  ms a call at " + f"{big}^3: " + ", ".join(f"{k} {v:.2f}" for k, v in times.items()),
+          flush=True)
+
+    # the kernels at their first shard shape, against their plain versions
+    kernel_rows = []
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    firsts = {
+        "K1": (c1, ozmm_fused_raw, ozmm_fused_raw_ref, "ozmm_fused_raw", "mn accurate",
+               "src/repro_torch/csrc/fused_raw.cu", "src/repro/kernels/fused/kernel.py:238"),
+        "K2": (c2, ozmm_fused_parts, ozmm_fused_parts_ref, "ozmm_fused_parts", "mn fast",
+               "src/repro_torch/csrc/fused_parts.cu", "src/repro/kernels/fused/kernel.py:265"),
+        "K3": (c3, kn.fp8_gemm, kn.fp8_gemm_plain, "fp8_gemm", "k fast",
+               "src/repro_torch/csrc/residue_gemm.cu", "src/repro/kernels/fp8_gemm/kernel.py:34"),
+        "K4": (c4, kn.int8_gemm, kn.int8_gemm_plain, "int8_gemm", "k int8 fast",
+               "src/repro_torch/csrc/residue_gemm.cu", "src/repro/kernels/int8_gemm/kernel.py:25"),
+        "K6": (c6, kn.quant_residues_f64, kn.quant_residues_f64_plain, "quant_residues",
+               "k fast", "src/repro_torch/csrc/quant_residues.cu",
+               "src/repro/kernels/quant_residues/kernel.py:77"),
+    }
+    for tag, (kept, kern, plain, name, case, source, replaces) in firsts.items():
+        n_shapes = len(kept.calls)
+        args_, kw = next(iter(kept.calls.values()))
+        kw = {k: v for k, v in kw.items() if k != "out"}  # K3/K4 write a product plane
+        got, ref = kern(*args_, **kw), plain(*args_, **kw)
+        outs_k = list(got) if isinstance(got, tuple) else [got]
+        outs_p = list(ref) if isinstance(ref, tuple) else [ref]
+        for g, r in zip(outs_k, outs_p):
+            check_equal(as_bytes(g), as_bytes(r), f"phase 13 {tag} at its shard shape vs plain")
+        err = max(max_abs_err(g, r) for g, r in zip(outs_k, outs_p))
+        del got, ref, outs_k, outs_p
+        torch.cuda.empty_cache()
+        ms_k = cuda_ms(lambda: kern(*args_, **kw))
+        ms_p = cuda_ms(lambda: plain(*args_, **kw), 3)
+        ms_set = cases[case][1]
+        prods = ms_set.n if ms_set.family == "int8" else 3 * ms_set.n
+        if tag in ("K1", "K2"):
+            m, k, n = rb, big, cb
+            n_ops = prods * 2 * m * k * n
+            n_bytes = (sum(t.numel() * t.element_size() for t in args_ if hasattr(t, "numel"))
+                       + 8 * m * n) if tag == "K1" else part_bytes(ms_set, m, k, n)
+            am, bm = a[:m], b[:, :n]
+            lib = lambda: torch.matmul(am, bm)  # noqa: E731
+        elif tag in ("K3", "K4"):
+            x, y = args_[0], args_[1]
+            m, k, n = x.shape[0], x.shape[1], y.shape[1]
+            n_ops, n_bytes = 2 * m * k * n, m * k + k * n + 4 * m * n
+            if tag == "K4":
+                yc = y.contiguous()
+                lib = lambda: torch._int_mm(x, yc)  # noqa: E731
+            else:
+                lib = lambda: torch._scaled_mm(x, y, scale_a=one, scale_b=one,  # noqa: E731
+                                               out_dtype=torch.float32, use_fast_accum=False)
+        else:
+            m, k = args_[0].shape
+            n = None
+            n_ops, n_bytes = 0, (8 + 3 * ms_set.n) * m * k + 4 * m + 4 * ms_set.n * 1024
+            lib = None
+        ms_l = cuda_ms(lib) if lib else None
+        t_bytes, t_ops = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_FP8_OPS_PER_S * 1e3
+        row = {"name": name, "tag": tag, "phase": 13, "case": case,
+               "shape": [m, k] + ([n] if n else []), "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[case].get(tag, 0), "max_abs_err": err,
+               "ms": ms_k, "plain_ms": ms_p, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes > t_ops else "operations", "library_ms": ms_l,
+               "shapes_seen": n_shapes}
+        kernel_rows.append(row)
+        lib_txt = f"{ms_l:.3f} ms" if ms_l is not None else "none"
+        print(f"  {tag} {name} at {row['shape']} ({case}; {n_shapes} distinct input shapes): "
+              f"kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, library {lib_txt}, bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']}), launches {row['launches']}, "
+              f"== plain (bitwise)", flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+    return kernel_rows, {"launches": launches, "ms": times, "accurate_errors": errs}
+
+
+def dist_lu_phase(args, dev, hpl_rows) -> dict:
+    """Phase 13 (b) and (c): lu_factor_dist under ozaki2-fp8/fast, both
+    wires, bitwise against the single-device lu_factor (and a ragged n on
+    4 x 1), then run_hpl_dist under ozaki2-fp8/accurate beside phase 7's
+    single-device run. Returns the phase's numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch import linalg
+    from repro_torch.linalg import dist as ldist
+    from repro_torch.linalg.dist import lu as dlu
+    from repro_torch.linalg.dist import trsm as dtrsm
+
+    get_counts, zero_counts = serve_counters()
+    out = {"lu": []}
+    hn = args.hpl_n
+    n4 = hn // 2
+    for n, grid, wires in ((n4, DIST_GRID, ("plans", "f64")),
+                           (n4 // 2 - DIST_RAGGED[0], DIST_RAGGED[1], ("plans",))):
+        a, _ = linalg.hpl_matrix(n, seed=args.seed + 13)
+        ts = time.perf_counter()
+        lu_s, perm_s = linalg.lu_factor(a, DIST_FAST, block=HPL_BLOCK)
+        single_s = time.perf_counter() - ts
+        updates = dist_lu_updates(n, HPL_BLOCK, *grid)
+        for wire in wires:
+            zero_counts()
+            with CallTotals(dlu, "pivot_argmax", events=False) as t_piv, \
+                    CallTotals(dlu, "rank1_update", events=False) as t_rank1, \
+                    CallTotals(dlu, "prepare", events=False) as t_prep, \
+                    CallTotals(dlu, "broadcast_plan", events=False) as t_wire, \
+                    CallTotals(dlu, "device_matmul") as t_gemm:
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                lu_d, perm_d, st = ldist.lu_factor_dist(a, DIST_FAST, grid=grid, block=HPL_BLOCK,
+                                                        panel_wire=wire)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - ts
+            counts = {k: v for k, v in get_counts().items() if v}
+            want = ({"K2": updates, "K2 transpose": updates} if wire == "plans"
+                    else {"K1": updates, "K1 prologue": 2 * updates})
+            check(counts == want, f"dist LU n={n} {grid} {wire}: launches {counts}, "
+                                  f"predicted {want}")
+            check(np.array_equal(perm_d, perm_s), f"dist LU n={n} {grid} {wire}: pivots differ "
+                                                  "from lu_factor's")
+            check(np.array_equal(lu_d.to_global(), lu_s),
+                  f"dist LU n={n} {grid} {wire}: factors differ from lu_factor's")
+            row = {"n": n, "grid": f"{grid[0]}x{grid[1]}", "panel_wire": wire, "seconds": secs,
+                   "single_device_seconds": single_s, "launches": counts,
+                   **{k: st[k] for k in ("wire_bytes", "f64_bytes", "swap_bytes",
+                                         "panel_bcast_bytes", "pivot_collectives")},
+                   **{f"{k}_s": v for k, v in st["timings"].items()},
+                   "pivot_search_s": t_piv.seconds(), "rank1_s": t_rank1.seconds(),
+                   "quantize_s": t_prep.seconds(), "wire_s": t_wire.seconds(),
+                   "rank_gemms_s": t_gemm.seconds(), "rank_gemms": len(t_gemm.spans)}
+            out["lu"].append(row)
+            print(f"  dist LU {DIST_FAST} n={n} block {HPL_BLOCK} {row['grid']} {wire} wire: "
+                  f"{secs:.2f} s (single-device lu_factor {single_s:.2f} s), == lu_factor "
+                  f"(factors and pivots, bitwise); launches {counts} as predicted; wire "
+                  f"{st['wire_bytes']} B (f64 {st['f64_bytes']} B), swaps {st['swap_bytes']} B; "
+                  f"panel {row['panel_s']:.2f} s (pivot search {row['pivot_search_s']:.2f}, "
+                  f"rank-1 {row['rank1_s']:.2f}), U12 {row['trsm_s']:.2f} s, broadcast "
+                  f"{row['broadcast_s']:.2f} s (quantize {row['quantize_s']:.2f}, wire "
+                  f"{row['wire_s']:.2f}), update {row['update_s']:.2f} s "
+                  f"({row['rank_gemms']} rank GEMMs, {row['rank_gemms_s']:.2f} s by events)",
+                  flush=True)
+            del lu_d
+        del a, lu_s
+
+    # (c) the distributed HPL, accurate mode, beside phase 7's single-device run
+    P, Q = DIST_GRID
+    solves = 2  # refine_steps=1: the solve and one refinement solve
+    k1_want = (dist_lu_updates(hn, HPL_BLOCK, P, Q)
+               + solves * dist_solve_gemms(hn, HPL_BLOCK, P) + 2 * P * Q)
+    zero_counts()
+    with CallTotals(dlu, "pivot_argmax", events=False) as t_piv, \
+            CallTotals(dlu, "device_matmul") as t_upd, \
+            CallTotals(dtrsm, "device_matmul") as t_sol:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        res = ldist.run_hpl_dist(hn, DIST_ACCURATE, grid=DIST_GRID, block=HPL_BLOCK,
+                                 refine_steps=1, seed=args.seed)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - ts
+    counts = {k: v for k, v in get_counts().items() if v}
+    want = {"K1": k1_want, "K1 prologue": 2 * k1_want}
+    check(res["passed"], f"dist HPL: scaled residual {res['scaled_residual']} > 16")
+    check(counts == want, f"dist HPL: launches {counts}, predicted {want}")
+    single = next((r for r in hpl_rows if r["policy"] == DIST_ACCURATE), None)
+    out["hpl"] = {k: v for k, v in res.items() if k != "refine_history"}
+    out["hpl"].update(seconds=secs, launches=counts, pivot_search_s=t_piv.seconds(),
+                      update_gemms_s=t_upd.seconds(), solve_gemms_s=t_sol.seconds(),
+                      refine_s=res["epilogue_seconds"] - res["solve_seconds"],
+                      refine_history=res["refine_history"],
+                      single_device=single and {k: single[k] for k in
+                                                ("seconds", "gflops", "scaled_residual")})
+    t = res["timings"]
+    print(f"  dist HPL {DIST_ACCURATE} n={hn} block {HPL_BLOCK} {res['grid']}: {secs:.2f} s; "
+          f"factor {res['factor_seconds']:.2f} s (panel {t['panel']:.2f}, of it pivot search "
+          f"{out['hpl']['pivot_search_s']:.2f}; U12 {t['trsm']:.2f}; broadcast "
+          f"{t['broadcast']:.2f}; update {t['update']:.2f}, rank GEMMs by events "
+          f"{out['hpl']['update_gemms_s']:.2f}), solve {res['solve_seconds']:.2f} s, refine "
+          f"{out['hpl']['refine_s']:.2f} s (solve GEMMs by events "
+          f"{out['hpl']['solve_gemms_s']:.2f}); {res['gflops']:.2f} GFLOP/s by HPL's count "
+          f"(factor + solve); scaled residual {res['scaled_residual']:.3e}; wire "
+          f"{res['wire_bytes']} B + epilogue {res['epilogue_wire_bytes']} B; launches {counts} "
+          "as predicted" + (f"; phase 7 single-device: {single['seconds']:.2f} s, "
+                            f"{single['gflops']:.2f} GFLOP/s, residual "
+                            f"{single['scaled_residual']:.3e}" if single else ""), flush=True)
+    return out
+
+
+def dist_phase(args, dev, hpl_rows) -> dict:
+    """Phase 13 (module docstring). Returns the kernels line's rows at the
+    shard shapes and the phase's numbers."""
+    t0 = time.perf_counter()
+    rows, gemms = dist_gemm_phase(args, dev)
+    t1 = time.perf_counter()
+    lu = dist_lu_phase(args, dev, hpl_rows)
+    print(f"  phase 13: (a) {t1 - t0:.1f} s, (b) + (c) {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    return {"kernel_rows": rows, "dist": {"sharded": gemms, **lu}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size", type=int, default=8192,
@@ -2976,7 +3360,7 @@ def main() -> int:
     # per LU solve, nb(nb-1)/2 TRSM folds each way; refine_steps=1 solves
     # twice and takes two accurate residuals (unprepared ozmm: K1)
     pairings = (nb - 1) + 2 * nb * (nb - 1)
-    expect = {"native": (0, 0), "ozaki2-fp8/fast": (2, pairings),
+    expect = {"ozaki2-fp8/fast": (2, pairings),
               "ozaki2-fp8/accurate": (pairings + 2, 0)}  # (K1, K2) launches
     hpl_rows = []
     for spec in HPL_POLICIES:
@@ -3102,6 +3486,11 @@ def main() -> int:
     train = train_phase(args, dev)
     t0 = phase("12 train", t0)
     print(json.dumps({"train": train["train"]}))
+
+    # ---- 13. distributed: sharded GEMMs, block-cyclic LU and HPL ------------
+    dist = dist_phase(args, dev, hpl_rows)
+    t0 = phase("13 distributed", t0)
+    print(json.dumps({"dist": dist["dist"]}))
     print(f"total {time.perf_counter() - t_start:.1f} s; DEFAULT_NUM_MODULI "
           f"{DEFAULT_NUM_MODULI}", flush=True)
 
@@ -3113,7 +3502,8 @@ def main() -> int:
                                  if r["policy"] == "ozaki2-fp8/fast")["k2_launches"])
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in (main, k2_main, *unfused_rows, serve["k2_row"],
-                                              families["k2_row"], train["k1_row"])]}))
+                                              families["k2_row"], train["k1_row"],
+                                              *dist["kernel_rows"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,7 @@ the leaves. numpy has no bfloat16: a bf16 leaf is saved as its bits
 (uint16) and the manifest records its dtype. ``restore`` loads into the
 target's leaves in place, each on its own device and dtype; the
 reference's elastic re-placement onto a restart mesh (``shardings=``)
-waits for the distributed slice.
+waits for the port's sharded placements (ROADMAP A4).
 """
 from __future__ import annotations
 

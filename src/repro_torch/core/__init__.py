@@ -13,8 +13,9 @@ from .moduli import (DEFAULT_NUM_MODULI, ModuliSet, family_moduli, make_moduli_s
                      min_moduli_for_bits)
 from .ozaki1 import ozmm_ozaki1_fp8
 from .ozaki2 import ozmm_ozaki2
-from .plan import (QuantizedMatrix, ozmm_prepared, plan_from_arrays,
-                   quantize_matrix, transpose_plan)
+from .plan import (PLAN_WIRE_VERSION, QuantizedMatrix, ozmm_prepared, plan_from_arrays,
+                   plan_from_wire, plan_to_wire, quantize_matrix, transpose_plan,
+                   wire_bytes)
 
 __all__ = [
     "DEFAULT_NUM_SLICES", "OZAKI2_FAMILY", "SCHEMES",
@@ -24,5 +25,6 @@ __all__ = [
     "prepare_operand", "resolve_device", "DEFAULT_NUM_MODULI", "ModuliSet",
     "family_moduli", "make_moduli_set", "min_moduli_for_bits", "ozmm_ozaki1_fp8",
     "ozmm_ozaki2", "QuantizedMatrix", "ozmm_prepared", "plan_from_arrays",
-    "quantize_matrix", "transpose_plan", "perf_model",
+    "quantize_matrix", "transpose_plan", "perf_model", "PLAN_WIRE_VERSION",
+    "plan_to_wire", "plan_from_wire", "wire_bytes",
 ]

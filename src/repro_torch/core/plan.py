@@ -12,7 +12,9 @@ pairing time, reproducing the unprepared path exactly.
 reusing its magnitude sketches (the backward primitive of ``core.gemm``).
 ``plan_from_arrays`` turns a JAX plan's leaves (as numpy arrays) into a
 plan of this package, so a plan built by the reference executes here with
-the same bits. The plan wire format comes with the distributed slice.
+the same bits. ``plan_to_wire`` / ``plan_from_wire`` / ``wire_bytes`` are the
+plan wire format of the distributed panel broadcasts (``core.distributed``,
+``linalg.dist``), the reference's version 1 layout.
 """
 from __future__ import annotations
 
@@ -169,6 +171,82 @@ def residue_products(pa, pb, ms: ModuliSet) -> list[torch.Tensor]:
             cparts = tuple(numerics.matmul_exact_fp8(x, y) for x, y in zip(ap, bp))
         cs.append(crt.combine_residue_product(cparts, p, sq, s, ms.family))
     return cs
+
+
+# ---------------------------------------------------------------------------
+# Wire format: plans as collective payloads (distributed HPL panel broadcast)
+# ---------------------------------------------------------------------------
+#
+# A fast-mode plan executes from ``lscale`` + ``parts`` alone, so that IS the
+# wire format: per-modulus 1-byte residue matrices plus one int32 exponent per
+# scaled row/column. The f64 source, the sketches and the Karatsuba third
+# part (hs = hi + lo, exact in e4m3 because |hs| <= 16) do not travel;
+# receivers can execute the pairing but not transpose or re-pair the plan.
+# Accurate-mode plans are pairing-coupled (the bound GEMM runs between both
+# operands' casts, residues are extracted per pairing), so their wire carries
+# the f64 source beside the cast, its prescale and the contraction-axis
+# maxima: slightly MORE bytes than the f64 block it replaces.
+
+#: Wire schema version (bump on layout changes); the reference's.
+PLAN_WIRE_VERSION = 1
+
+
+def plan_to_wire(q: QuantizedMatrix) -> tuple[dict, list[torch.Tensor]]:
+    """Serialize a plan into ``(header, leaves)``: a small static dict
+    (schema version, the plan's static fields, per-modulus part counts) and
+    the flat list of tensors that travels. ``plan_from_wire`` inverts."""
+    header = {"version": PLAN_WIRE_VERSION, "role": q.role,
+              "family": q.family, "num_moduli": q.num_moduli, "mode": q.mode,
+              "shape": tuple(int(s) for s in q.shape)}
+    if q.mode == "fast":
+        leaves: list[torch.Tensor] = [q.lscale]
+        shipped: list[int] = []
+        for part in q.parts:
+            ship = part[:2] if len(part) == 3 else part  # Karatsuba hs is derivable
+            shipped.append(len(ship))
+            leaves.extend(ship)
+        header["parts_per_modulus"] = tuple(shipped)
+        return header, leaves
+    mx = q.stats.row_max if q.role == "lhs" else q.stats.col_max
+    return header, [q.x, q.lpre, q.bar, mx]
+
+
+def plan_from_wire(header: dict, leaves: list[torch.Tensor]) -> QuantizedMatrix:
+    """Rebuild an execute-only plan from a received payload: its pairing is
+    bitwise equal to the owner plan's, but it cannot be transposed or
+    re-paired under another mode. Raises on a schema version mismatch."""
+    if header.get("version") != PLAN_WIRE_VERSION:
+        raise ValueError(f"plan wire version mismatch: {header.get('version')}"
+                         f" != {PLAN_WIRE_VERSION}")
+    ms = make_moduli_set(header["family"], header["num_moduli"])
+    role, mode = header["role"], header["mode"]
+    if mode == "fast":
+        lscale, rest = leaves[0], leaves[1:]
+        parts: list[tuple[torch.Tensor, ...]] = []
+        i = 0
+        for n_ship, sq in zip(header["parts_per_modulus"], ms.is_square):
+            part = tuple(rest[i:i + n_ship])
+            i += n_ship
+            if ms.family != "int8" and not sq:
+                hi, lo = part
+                # hs = hi + lo is exact: |hs| <= 16 sits in e4m3's integer window
+                part = (hi, lo, (hi.to(torch.float32) + lo.to(torch.float32)).to(hi.dtype))
+            parts.append(part)
+        return QuantizedMatrix(role=role, family=ms.family, num_moduli=ms.n,
+                               mode=mode, x=None, stats=None, lscale=lscale,
+                               parts=tuple(parts), lpre=None, bar=None)
+    x, lpre, bar, mx = leaves
+    st = (OperandStats(None, mx, None, None) if role == "lhs"
+          else OperandStats(None, None, None, mx))
+    return QuantizedMatrix(role=role, family=ms.family, num_moduli=ms.n,
+                           mode=mode, x=x, stats=st, lscale=None, parts=None,
+                           lpre=lpre, bar=bar)
+
+
+def wire_bytes(leaves) -> int:
+    """Payload size of a wire leaf list (what one broadcast hop moves); an
+    e4m3 or int8 leaf counts one byte an element."""
+    return int(sum(t.numel() * t.element_size() for t in leaves))
 
 
 def _check_pair(qa: QuantizedMatrix, qb: QuantizedMatrix) -> ModuliSet:

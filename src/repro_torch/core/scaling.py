@@ -68,12 +68,13 @@ def scaling_fast(a: torch.Tensor, b: torch.Tensor, ms: ModuliSet) -> ScalingResu
     return ScalingResult(lmu, lnu, 0)
 
 
-def accurate_prescale(x: torch.Tensor, axis: int
+def accurate_prescale(x: torch.Tensor, axis: int, abs_max: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-operand half of accurate mode (paper §III-E step (14)):
     lpre = 7 - floor(log2 max|x|) along the contraction ``axis``, and the
-    round-up e4m3 cast of 2^lpre * |x|. Returns (lpre, Xbar)."""
-    amax = x.abs().amax(dim=axis)
+    round-up e4m3 cast of 2^lpre * |x|. ``abs_max`` injects globally reduced
+    maxima (k-sharding). Returns (lpre, Xbar)."""
+    amax = x.abs().amax(dim=axis) if abs_max is None else abs_max
     _, e = torch.frexp(amax)
     lpre = torch.where(amax > 0, 7 - (e - 1), torch.zeros_like(e)).to(torch.int32)
     scaled = numerics.ldexp_wide(x.abs(), lpre.unsqueeze(axis))

@@ -1,6 +1,6 @@
 """repro_torch.linalg: emulated-FP64 dense linear algebra on top of ``ozmm``
-(the torch counterpart of ``repro.linalg``, without its distributed ``dist``
-subpackage).
+(the torch counterpart of ``repro.linalg``; its block-cyclic distributed
+counterparts are in ``repro_torch.linalg.dist``).
 
 Blocked, GEMM-dominant BLAS-3 / LAPACK-style algorithms where every O(n^3)
 flop routes through ``repro_torch.core.backend_matmul`` under one

@@ -6,16 +6,24 @@ unblocked panel updates are host numpy, as in the reference.
 * ``pivot_argmax`` — |column| argmax on the device; ties break to the
   smallest index (``torch.argmax`` returns the first maximal index, as
   ``np.argmax`` and ``jnp.argmax`` do).
-* ``solve_triangular`` — the diagonal-block solve as a row-substitution loop
-  in the reference's elimination order, unit diagonal (no divides) or
-  general diagonal (one divide per eliminated row).
+* ``solve_triangular`` — the diagonal-block solve in the reference's
+  elimination order, unit diagonal (no divides) or general diagonal (one
+  divide per eliminated row).
 
 The reference pads the column and the right-hand side to a power of two so
 that its jitted kernels compile O(log n) times; PyTorch runs eagerly, so the
-port does not pad. Each row's reduction ``sum_j t[i, j] * x_j`` is summed in
-torch's order, not XLA's (which lowers the reference's scan body in an order
-that neither ``torch.sum`` nor a sequential sum reproduces), so the solves
-agree with the reference to rounding, not bit for bit.
+port does not pad. The reference's scan sums each row's ``sum_j t[i, j] *
+x_j`` in the order XLA lowers its body to. The port keeps, for every row, a
+running sum of the products of the rows solved so far (one product and one
+addition a solved row, both elementwise), so row i's sum is taken j by j in
+elimination order. For a lower solve that is XLA's order on blocks of up to
+32 rows, bit for bit (longer ones XLA sums in another order, which no torch
+reduction reproduces; an upper solve's elimination order is the reverse of
+XLA's): the solves agree with the reference to rounding, and bitwise on
+small blocks. Every element of the solution depends on its own column
+alone, in an order fixed by the triangle, whatever the width of the
+right-hand side and on any device, so a block-cyclic rank that solves a
+subset of the columns (``linalg.dist``) gets the bits of the whole solve.
 """
 from __future__ import annotations
 
@@ -47,22 +55,24 @@ def pivot_argmax(col, *, device=None) -> tuple[int, float]:
 def solve_tri_tensor(t: torch.Tensor, rhs: torch.Tensor, *, lower: bool,
                      unit_diag: bool) -> torch.Tensor:
     """``solve_triangular`` on float64 tensors of one device, returning a
-    tensor there: row ``i`` (in elimination order) is
-    ``x_i = (rhs_i - sum_j t[i, j] * x_j) / t_ii``, the sum over the strict
-    triangle of ``t`` (so unsolved rows, still holding ``rhs``, are masked,
-    and the strict OTHER triangle is ignored: packed dgetrf storage passes
-    raw). ``rhs`` is (n, w); the divide is skipped for a unit diagonal."""
+    tensor there: in elimination order, ``x_i = (rhs_i - s_i) / t_ii`` (no
+    divide for a unit diagonal), where ``s_i`` is the running sum of
+    ``t[i, j] * x_j`` over the rows j solved before it, added as each is
+    solved. Only the strict triangle of ``t`` is read (packed dgetrf storage
+    passes raw). ``rhs`` is (n, w)."""
     n = t.shape[0]
     diag = torch.diagonal(t)
     if not unit_diag and not bool((diag != 0.0).all()):
         raise np.linalg.LinAlgError("singular triangular factor: zero diagonal")
-    strict = torch.tril(t, -1) if lower else torch.triu(t, 1)
     x = rhs.clone()
+    sums = torch.zeros_like(x)
     for i in (range(n) if lower else range(n - 1, -1, -1)):
-        xi = x[i] - torch.sum(strict[i][:, None] * x, dim=0)
+        xi = x[i] - sums[i]
         if not unit_diag:
             xi = xi / diag[i]
         x[i] = xi
+        later = slice(i + 1, n) if lower else slice(0, i)
+        sums[later] += t[later, i:i + 1] * xi
     return x
 
 

@@ -1,10 +1,11 @@
 """The port's optimizer (the torch counterpart of ``repro.optim``): AdamW
 with optional blockwise 8-bit moments, global-norm clipping and a
-warmup-cosine schedule. The reference's compressed and exact-residue
-gradient reductions over a mesh axis (``optim/compress.py``) wait for the
-distributed slice."""
+warmup-cosine schedule; and the compressed (int8 + error feedback) and
+exact fixed-point gradient reductions over replicas (``compress``)."""
 from .adamw import AdamWConfig, OptState, global_norm, init, schedule, update
+from .compress import EFState, compress_decompress, compressed_psum, ef_init, exact_residue_psum
 from .quantized import BLOCK, Q8, dequantize, quantize
 
 __all__ = ["AdamWConfig", "OptState", "global_norm", "init", "schedule", "update",
-           "BLOCK", "Q8", "dequantize", "quantize"]
+           "EFState", "compress_decompress", "compressed_psum", "ef_init",
+           "exact_residue_psum", "BLOCK", "Q8", "dequantize", "quantize"]

@@ -8,7 +8,9 @@ global TF32 switch; and the serving path: K2 on a cached weight plan at a
 decode batch's few rows, and the smoke engine (qwen2-7b; the MoE and MLA
 families' moonshot and deepseek) on the kernel routes against '+core';
 training: one train step at smoke width on the kernel route against
-'+core', and a checkpoint round trip of a train state on the card.
+'+core', and a checkpoint round trip of a train state on the card; the
+distributed paths: the sharded GEMMs on a mesh of the card against
+'+core', and the block-cyclic LU and solve against the single-device ones.
 Every test here is marked ``cuda`` and
 skips without a CUDA device.
 
@@ -795,3 +797,52 @@ def test_checkpoint_round_trip_on_card(tmp_path):
     for a, b in zip(fresh.params.parameters(), state.params.parameters()):
         assert a.device.type == "cuda" and torch.equal(a, b)
     assert all(torch.equal(fresh.opt.v[k], state.opt.v[k]) for k in state.opt.v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,mode", [("fp8-hybrid", "fast"), ("fp8-hybrid", "accurate"),
+                                         ("int8", "fast")])
+def test_sharded_gemms_on_card(family, mode):
+    """A 2 x 4 mesh of the card: k-sharded on K6 + K3/K4 and mn-sharded on
+    K2 / pair_exponents + K1 equal '+core' bitwise; fast k-sharding equals
+    the single-device ozmm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs the CUDA card")
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch import make_mesh
+
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(_lognormal(rng, (256, 1024), 1.0)).cuda()
+    b = torch.from_numpy(_lognormal(rng, (1024, 256), 1.0)).cuda()
+    mesh = make_mesh((2, 4), ("data", "model"), devices="cuda")
+    kw = dict(family=family, mode=mode)
+    got = dist.ozmm_k_sharded(a, b, mesh, **kw)
+    assert torch.equal(got, dist.ozmm_k_sharded(a, b, mesh, backend="core", **kw))
+    if mode == "fast":
+        scheme = "ozaki2-int8" if family == "int8" else "ozaki2-fp8"
+        assert torch.equal(got, ozmm(a, b, f"{scheme}/fast"))
+    got = dist.ozmm_mn_sharded(a, b, mesh, **kw)
+    assert torch.equal(got, dist.ozmm_mn_sharded(a, b, mesh, backend="core", **kw))
+
+
+@pytest.mark.cuda
+def test_dist_lu_on_card_equals_single_device():
+    """lu_factor_dist under ozaki2-fp8/fast on a 2 x 2 grid of the card (K2
+    rank updates) is lu_factor's factorization bit for bit, both wires; the
+    distributed solve is lu_solve's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs the CUDA card")
+    from repro_torch import linalg
+    from repro_torch.linalg import dist
+
+    a, b = linalg.hpl_matrix(300, seed=4)
+    lu_s, perm_s = linalg.lu_factor(a, "ozaki2-fp8/fast", block=64)
+    x_s = linalg.lu_solve(lu_s, perm_s, b, "ozaki2-fp8/fast", block=64)
+    for wire in ("plans", "f64"):
+        lu, perm, stats = dist.lu_factor_dist(a, "ozaki2-fp8/fast", grid=(2, 2), block=64,
+                                              panel_wire=wire)
+        assert np.array_equal(perm, perm_s) and np.array_equal(lu.to_global(), lu_s)
+        x, _ = dist.lu_solve_dist(lu, perm, b, "ozaki2-fp8/fast", panel_wire=wire)
+        assert np.array_equal(x, x_s)
+    res = dist.run_hpl_dist(300, "ozaki2-fp8/accurate", grid=(2, 2), block=64)
+    assert res["passed"]

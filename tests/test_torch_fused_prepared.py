@@ -2,8 +2,10 @@
 ``ozmm(qa, qb, '+pallas')`` against ``ozmm_pallas_fused_prepared`` in
 interpret mode on the same numpy inputs, fast mode (the plain version of
 K2) and accurate mode (the plain version of K1 under the bound GEMM's
-exponents), for the three Ozaki-II families at 250x94x61. Tolerance:
-bitwise."""
+exponents), for the three Ozaki-II families at 250x94x61, at 7 moduli
+each (the hybrid's 6 square and 1 Karatsuba: both product schedules; the
+interpreter's compile grows with the count, and the kernel's arithmetic
+per modulus does not depend on it). Tolerance: bitwise."""
 import numpy as np
 import pytest
 
@@ -13,7 +15,6 @@ from repro.core.moduli import make_moduli_set as jax_moduli_set
 from repro.core.plan import quantize_matrix as jax_quantize_matrix
 from repro.kernels.fused.ops import ozmm_pallas_fused_prepared as jax_fused_prepared
 from repro_torch import ozmm, prepare_operand
-from repro_torch.core.moduli import DEFAULT_NUM_MODULI
 from repro_torch.kernels import fused
 
 from _torch_parity import PRIME_ISH, SCHEME, operands
@@ -26,7 +27,7 @@ def test_prepared_pairings_match_jax_fused_prepared(family):
     plain version, accurate mode through K1's under the bound GEMM's
     exponents; a raw rhs quantized on the fly gives the same bits."""
     a, b = operands(4, PRIME_ISH, 2.0)
-    n = DEFAULT_NUM_MODULI[family]
+    n = 7
     for mode, plain in (("fast", fused.ozmm_fused_parts_ref),
                         ("accurate", fused.ozmm_fused_raw_ref)):
         ms = jax_moduli_set(family, n)

@@ -36,7 +36,9 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.obs.health, repro_torch.core.ozaki1, repro_torch.core.perf_model, "
             "repro_torch.models, repro_torch.configs, repro_torch.serve, "
             "repro_torch.serve.batching, repro_torch.train, repro_torch.optim, "
-            "repro_torch.checkpoint, repro_torch.data, repro_torch.runtime; "
+            "repro_torch.checkpoint, repro_torch.data, repro_torch.runtime, "
+            "repro_torch.core.distributed, repro_torch.launch, repro_torch.launch.mesh, "
+            "repro_torch.linalg.dist, repro_torch.optim.compress; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
     env = {**os.environ, "PYTHONPATH": str(PORT.parent)}

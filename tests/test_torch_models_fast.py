@@ -1,14 +1,18 @@
 """repro_torch.models against repro.models under ozaki2-fp8/fast, the
 serving path's policy, on the qwen2-7b smoke config (2 layers) with the
-same weights and the same cached weight plans: one ragged paged
-Model.prefill_slots and one decode_slots step, logits to LOGIT_RTOL of
-max|logit| with equal greedy tokens, on the kernel route's plain versions
-('+pallas': K2's) and on '+core'.
+same weights (drawn with numpy into the reference's shapes) and the same
+cached weight plans: one ragged paged Model.prefill_slots and one
+decode_slots step, logits to LOGIT_RTOL of max|logit| with equal greedy
+tokens, on the kernel route's plain versions ('+pallas': K2's) and on
+'+core'.
 
-The reference runs its prepared GEMMs eagerly, ~1.2 s each on this CPU (15
-a step), so each of its steps is computed once for the module; its cached
-plans are the port's (held bitwise equal to its own quantization by
-test_torch_serve.py), which saves its quantization pass."""
+The reference compiles its prepared GEMMs at every shape, ~1.2 s each on
+a CPU (15 a step) at the default 12 moduli, so each of its steps is
+computed once for the module, at 7 moduli (6 square, 1 Karatsuba: both
+product schedules; the compile grows with the count, and the paths held
+here do not depend on it); its cached plans are the port's (held bitwise
+equal to its own quantization by test_torch_serve.py), which saves its
+quantization pass."""
 import numpy as np
 import pytest
 
@@ -16,10 +20,11 @@ import jax.numpy as jnp
 
 from repro_torch.serve import quantize_params
 
-from _torch_models_parity import (assert_logits_close, one_torch_thread,  # noqa: F401
-                                  ref_params_with_plans, smoke_pair)
+from _torch_families_parity import family_pair
+from _torch_models_parity import (ARCH, assert_logits_close, one_torch_thread,  # noqa: F401
+                                  ref_params_with_plans)
 
-FAST = "ozaki2-fp8/fast"
+FAST = "ozaki2-fp8/fast@7"
 TOKS = np.random.default_rng(6).integers(1, 512, (2, 8))
 LENGTHS = np.array([8, 5], np.int32)
 BT = np.array([[1, 2, 3], [4, 5, 6]], np.int32)
@@ -29,7 +34,7 @@ BT = np.array([[1, 2, 3], [4, 5, 6]], np.int32)
 def fast_runs():
     """The reference's prefill_slots and decode_slots logits, and the port's
     model with its prepared params."""
-    ref_model, ref_params, model, params = smoke_pair(gemm=FAST)
+    ref_model, ref_params, model, params = family_pair(ARCH, gemm=FAST)
     serve_params = quantize_params(params, FAST)
     ref_serve = ref_params_with_plans(ref_params, serve_params)
     pool = ref_model.init_paged_cache(7, 4)

@@ -1,9 +1,10 @@
 """repro_torch's training forward and gradients against the JAX reference
 on the CPU, on the same numpy weights (``_torch_families_parity``):
 ``Model.forward_train``'s logits, aux loss and MTP logits for the smoke
-config of every family (dense, MoE, MLA + MoE + MTP, SSM, hybrid, encdec,
-vlm) to LOGIT_RTOL of max|logit|; ``loss_fn``'s gradient against
-``jax.value_and_grad`` per leaf, normwise, under native f32 (dense and
+config of every family (dense, among them starcoder2's plain GELU MLP and
+QKV bias and gemma2's softcaps and post-norms; MoE, MLA + MoE + MTP, SSM,
+hybrid, encdec, vlm) to LOGIT_RTOL of max|logit|; ``loss_fn``'s gradient
+against ``jax.value_and_grad`` per leaf, normwise, under native f32 (dense and
 deepseek); and in an f64 dense model the gradient with every GEMM and both
 cotangent GEMMs emulated (ozaki2-fp8/fast, core route) against the port's
 native f64 gradient (FP64 grade), which is held against the reference's.
@@ -37,8 +38,9 @@ from repro_torch.train import loss_fn
 from _torch_families_parity import family_pair
 from _torch_models_parity import LOGIT_RTOL, one_torch_thread  # noqa: F401
 
-FAMILIES = ("qwen2-7b", "moonshot-v1-16b-a3b", "deepseek-v3-671b", "mamba2-2.7b",
-            "zamba2-1.2b", "seamless-m4t-medium", "internvl2-26b")
+FAMILIES = ("qwen2-7b", "starcoder2-15b", "gemma2-27b", "moonshot-v1-16b-a3b",
+            "deepseek-v3-671b", "mamba2-2.7b", "zamba2-1.2b", "seamless-m4t-medium",
+            "internvl2-26b")
 DATA = DataConfig(seed=5, batch=2, seq_len=8, vocab_size=512, mean_doc_len=5)
 #: Logits to LOGIT_RTOL of max|logit|, but zamba2's (module docstring).
 LOGIT_TOL = {"zamba2-1.2b": 3 * LOGIT_RTOL}
