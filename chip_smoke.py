@@ -49,8 +49,11 @@ script exits non-zero without printing a result:
    int8) products through torch._scaled_mm (torch._int_mm), yardsticks the
    port never calls.
 7. linalg on the card: run_hpl(n, policy, block=128, refine_steps=1) for
-   ozaki2-fp8/fast (K2 on every trailing update and TRSM fold) and
-   ozaki2-fp8/accurate (K1 on the prepared pairs), each scaled residual <= 16 and each kernel's launch
+   native (cuBLAS DGEMM through the same driver) and ozaki2-fp8/fast (K2 on
+   every trailing update and TRSM fold) at n = --hpl-n / 2, and
+   ozaki2-fp8/accurate (K1 on the prepared pairs) at n = --hpl-n (phase
+   13's distributed HPL runs beside it), each scaled residual <= 16 and
+   each kernel's launch
    count (and its prologue's or transpose's) moving by the count the code
    predicts, with the time split between the kernels, the rest of the GEMM
    layer and the host, and K2's time a launch; each kernel at the inputs of
@@ -275,11 +278,11 @@ POLICIES = ("ozaki2-fp8/fast", "ozaki2-fp8/accurate", "ozaki2-karatsuba/fast",
 UNFUSED = "+pallas+unfused"
 #: Prepared (fast-mode) pairings run on K2.
 K2_POLICIES = ("ozaki2-fp8/fast", "ozaki2-karatsuba/fast", "ozaki2-int8/fast")
-#: Phase 7's HPL runs. "native" (cuBLAS DGEMM through the same driver, no
-#: kernel of the port; 37.7-63.4 s at n = 8192 on an H100 80GB HBM3 at
-#: 700.00 W, by the host's speed) is no longer run, to keep the whole run,
-#: with phase 13, well under its limit.
-HPL_POLICIES = ("ozaki2-fp8/fast", "ozaki2-fp8/accurate")
+#: Phase 7's HPL runs, each policy's n as a fraction of --hpl-n: the
+#: host-bound native and fast runs at half of it keep the whole run well
+#: inside its limit on a slow host (at n = 8192 they took 65 and 124 s on
+#: an H100 80GB HBM3, 700.00 W, whose host was slow).
+HPL_POLICIES = {"native": 2, "ozaki2-fp8/fast": 2, "ozaki2-fp8/accurate": 1}
 HPL_BLOCK = 128
 #: Timed runs of K1's plain version (~1.3 s each at 8192^3); 3 rather than 5
 #: keeps the whole run near half its time limit.
@@ -2924,6 +2927,7 @@ def dist_lu_phase(args, dev, hpl_rows) -> dict:
 
     from repro_torch import linalg
     from repro_torch.linalg import dist as ldist
+    from repro_torch.linalg.dist import grid as dgrid
     from repro_torch.linalg.dist import lu as dlu
     from repro_torch.linalg.dist import trsm as dtrsm
 
@@ -2989,6 +2993,7 @@ def dist_lu_phase(args, dev, hpl_rows) -> dict:
                + solves * dist_solve_gemms(hn, HPL_BLOCK, P) + 2 * P * Q)
     zero_counts()
     with CallTotals(dlu, "pivot_argmax", events=False) as t_piv, \
+            CallTotals(dgrid, "argmax_allreduce", events=False) as t_red, \
             CallTotals(dlu, "device_matmul") as t_upd, \
             CallTotals(dtrsm, "device_matmul") as t_sol:
         torch.cuda.synchronize()
@@ -3004,7 +3009,8 @@ def dist_lu_phase(args, dev, hpl_rows) -> dict:
     single = next((r for r in hpl_rows if r["policy"] == DIST_ACCURATE), None)
     out["hpl"] = {k: v for k, v in res.items() if k != "refine_history"}
     out["hpl"].update(seconds=secs, launches=counts, pivot_search_s=t_piv.seconds(),
-                      update_gemms_s=t_upd.seconds(), solve_gemms_s=t_sol.seconds(),
+                      pivot_allreduce_s=t_red.seconds(), update_gemms_s=t_upd.seconds(),
+                      solve_gemms_s=t_sol.seconds(),
                       refine_s=res["epilogue_seconds"] - res["solve_seconds"],
                       refine_history=res["refine_history"],
                       single_device=single and {k: single[k] for k in
@@ -3012,7 +3018,8 @@ def dist_lu_phase(args, dev, hpl_rows) -> dict:
     t = res["timings"]
     print(f"  dist HPL {DIST_ACCURATE} n={hn} block {HPL_BLOCK} {res['grid']}: {secs:.2f} s; "
           f"factor {res['factor_seconds']:.2f} s (panel {t['panel']:.2f}, of it pivot search "
-          f"{out['hpl']['pivot_search_s']:.2f}; U12 {t['trsm']:.2f}; broadcast "
+          f"{out['hpl']['pivot_search_s']:.2f}, pivot allreduce on the mesh "
+          f"{out['hpl']['pivot_allreduce_s']:.2f}; U12 {t['trsm']:.2f}; broadcast "
           f"{t['broadcast']:.2f}; update {t['update']:.2f}, rank GEMMs by events "
           f"{out['hpl']['update_gemms_s']:.2f}), solve {res['solve_seconds']:.2f} s, refine "
           f"{out['hpl']['refine_s']:.2f} s (solve GEMMs by events "
@@ -3042,7 +3049,8 @@ def main() -> int:
     ap.add_argument("--size", type=int, default=8192,
                     help="m = n = k of the main path (default 8192)")
     ap.add_argument("--hpl-n", type=int, default=8192,
-                    help="n of the HPL runs of phase 7 (default 8192)")
+                    help="n of phase 7's accurate HPL run (its native and fast runs take half) "
+                         "and of phase 13's (default 8192)")
     ap.add_argument("--serve-layers", type=int, default=1,
                     help="layers of qwen2-7b in phase 10 (default 1 of 28)")
     ap.add_argument("--seed", type=int, default=0)
@@ -3355,15 +3363,15 @@ def main() -> int:
     print(json.dumps({"k2_by_policy": k2_rows}))
 
     # ---- 7. linalg / HPL on the card --------------------------------------
-    hn = args.hpl_n
-    nb = -(-hn // HPL_BLOCK)
-    # per LU solve, nb(nb-1)/2 TRSM folds each way; refine_steps=1 solves
-    # twice and takes two accurate residuals (unprepared ozmm: K1)
-    pairings = (nb - 1) + 2 * nb * (nb - 1)
-    expect = {"ozaki2-fp8/fast": (2, pairings),
-              "ozaki2-fp8/accurate": (pairings + 2, 0)}  # (K1, K2) launches
     hpl_rows = []
-    for spec in HPL_POLICIES:
+    for spec, share in HPL_POLICIES.items():
+        hn = args.hpl_n // share
+        nb = -(-hn // HPL_BLOCK)
+        # per LU solve, nb(nb-1)/2 TRSM folds each way; refine_steps=1 solves
+        # twice and takes two accurate residuals (unprepared ozmm: K1)
+        pairings = (nb - 1) + 2 * nb * (nb - 1)
+        expect = {"native": (0, 0), "ozaki2-fp8/fast": (2, pairings),
+                  "ozaki2-fp8/accurate": (pairings + 2, 0)}  # (K1, K2) launches
         with CallTotals(ops, "ozmm_fused_raw") as t1, \
                 CallTotals(ops, "ozmm_fused_parts") as t2, \
                 CallTotals(blas3, "backend_matmul") as tg, \

@@ -26,16 +26,18 @@ matters for the f32 bound partials; integer sums do not depend on it.
 Ranks along a mesh axis that a strategy does not shard hold replicas, and
 the replica at index 0 does the work.
 
-Route (``backend``, as ``core.gemm._resolve_backend`` resolves it): on a
-compute-capability-9.0 card ``"auto"`` takes the Hopper kernels, elsewhere
-the core torch ops (``"core"`` forces them; ``"pallas"`` on CPU tensors runs
-the kernels' plain versions). mn shards run ``quantize_matrix`` and the
-prepared pairing: K2 in fast mode, ``pair_exponents`` + K1 in accurate mode
-(``ozmm_pallas_fused_prepared``). k shards quantize their slice with K6's
-f64 entry and run their products on K3 (fp8 families) or K4 (int8)
-(``kernels.pipeline.residue_gemms``); the combine, the psum and the Garner
-steps stay the core's int32 arithmetic, because the psum sits between the
-products and the combine (so K5 is not on this path).
+Route (``shard_route``, as ``core.gemm._resolve_backend`` resolves
+``backend="auto"``): on a compute-capability-9.0 card the Hopper kernels,
+elsewhere the core torch ops. ``mn_shard`` and ``k_shard_residues`` take the
+route as an argument, so one shard can run either (on CPU tensors the
+kernel route runs the kernels' plain versions). mn shards run
+``quantize_matrix`` and the prepared pairing: K2 in fast mode,
+``pair_exponents`` + K1 in accurate mode (``ozmm_pallas_fused_prepared``).
+k shards quantize their slice with K6's f64 entry and run their products
+on K3 (fp8 families) or K4 (int8) (``kernels.pipeline.residue_gemms``);
+the combine, the psum and the Garner steps stay the core's int32
+arithmetic, because the psum sits between the products and the combine
+(so K5 is not on this path).
 """
 from __future__ import annotations
 
@@ -53,17 +55,14 @@ _FAMILY_SCHEME = {fam: sch for sch, fam in OZAKI2_FAMILY.items()}
 _INT32_MAX = 2 ** 31 - 1
 
 
-def shard_route(family: str, mode: str, num_moduli: int | None, backend: str,
+def shard_route(family: str, mode: str, num_moduli: int | None,
                 device: torch.device) -> str:
-    """``"core"`` or ``"pallas"`` (the kernel route) for a shard on ``device``."""
-    from .gemm import _check_kernel_route, _resolve_backend  # gemm imports plan, not us
+    """``"core"`` or ``"pallas"`` (the kernel route): the route ``"auto"``
+    takes for a shard on ``device``."""
+    from .gemm import _resolve_backend  # gemm imports plan, not us
 
-    pol = PrecisionPolicy(scheme=_FAMILY_SCHEME[family], mode=mode, num_moduli=num_moduli,
-                          backend=backend)
-    route = _resolve_backend(pol, torch.device(device))
-    if route == "pallas":
-        _check_kernel_route(pol, torch.device(device))
-    return route
+    pol = PrecisionPolicy(scheme=_FAMILY_SCHEME[family], mode=mode, num_moduli=num_moduli)
+    return _resolve_backend(pol, torch.device(device))
 
 
 def _split(n: int, parts: int, what: str) -> list[slice]:
@@ -92,7 +91,7 @@ def mn_shard(a_loc: torch.Tensor, b_loc: torch.Tensor, ms: ModuliSet, mode: str,
 
 def ozmm_mn_sharded(a, b, mesh, *, m_axis: str = "data", n_axis: str = "model",
                     family: str = "fp8-hybrid", num_moduli: int | None = None,
-                    mode: str = "accurate", backend: str = "auto") -> torch.Tensor:
+                    mode: str = "accurate") -> torch.Tensor:
     """Emulated GEMM with A row-sharded over ``m_axis`` and B column-sharded
     over ``n_axis``: rank (i, j) emulates output block (i, j) on its device;
     returns the stitched f64 product on the first rank's device."""
@@ -107,7 +106,7 @@ def ozmm_mn_sharded(a, b, mesh, *, m_axis: str = "data", n_axis: str = "model",
     for i, rs in enumerate(rows):
         for j, cs in enumerate(cols):
             dev = mesh.axis_devices(m_axis, **{n_axis: j})[i]
-            route = shard_route(family, mode, num_moduli, backend, dev)
+            route = shard_route(family, mode, num_moduli, dev)
             out[rs, cs] = mn_shard(a[rs].to(dev), b[:, cs].to(dev), ms, mode, route).to(out_dev)
     return out
 
@@ -166,8 +165,7 @@ def k_sharded_exponents(a_sh: list[torch.Tensor], b_sh: list[torch.Tensor], k: i
 
 
 def ozmm_k_sharded(a, b, mesh, *, k_axis: str = "model", family: str = "fp8-hybrid",
-                   num_moduli: int | None = None, mode: str = "fast",
-                   backend: str = "auto") -> torch.Tensor:
+                   num_moduli: int | None = None, mode: str = "fast") -> torch.Tensor:
     """Emulated GEMM with the contraction sharded over ``k_axis``, exact:
     the ranks' centred int32 residue partials are summed, then re-reduced
     mod p. Returns the f64 product on the first rank's device."""
@@ -186,7 +184,7 @@ def ozmm_k_sharded(a, b, mesh, *, k_axis: str = "model", family: str = "fp8-hybr
     acc = None
     for xa, xb, d in zip(a_sh, b_sh, devs):  # ascending rank: the psum
         cs = k_shard_residues(xa, xb, lmu.to(d), lnu.to(d), ms,
-                              shard_route(family, mode, num_moduli, backend, d))
+                              shard_route(family, mode, num_moduli, d))
         cs = [c.to(out_dev) for c in cs]
         acc = cs if acc is None else [x + c for x, c in zip(acc, cs)]
     cs = [numerics.centered_mod(c, p) for c, p in zip(acc, ms.ps)]
@@ -225,8 +223,8 @@ def argmax_allreduce(vals, idxs, mesh, axis: str) -> tuple[float, int]:
 
 
 def argmax_allreduce_host(vals, idxs) -> tuple[float, int]:
-    """Host fallback with the same semantics, for grids larger than the
-    distinct device count."""
+    """The same collective on host values (the reference's fallback for
+    grids larger than the distinct device count)."""
     vals = np.asarray(vals, dtype=float)
     idxs = np.asarray(idxs)
     m = vals.max()
@@ -239,25 +237,19 @@ def broadcast_plan(q: QuantizedMatrix, devices=()) -> tuple[list[QuantizedMatrix
     The owner serializes once (``plan_to_wire``); each leaf goes ``.to``
     each receiver's device and is deserialized there into an execute-only
     plan (bitwise-equal pairing). Returns ``(received_plans,
-    payload_bytes)``, the size of ONE wire copy. With no ``devices`` (grids
-    without a mesh) the payload is deserialized in place, and the bytes are
-    counted all the same."""
+    payload_bytes)``: a plan per device, and the size of ONE wire copy."""
     header, leaves = plan_to_wire(q)
     payload = wire_bytes(leaves)
-    if not devices:
-        return [plan_from_wire(header, leaves)], payload
     return [plan_from_wire(header, [leaf.to(d) for leaf in leaves]) for d in devices], payload
 
 
 def broadcast_f64(x, devices=()) -> tuple[list[torch.Tensor], int]:
-    """The baseline panel broadcast: the raw f64 block travels (a copy on
-    the CPU without ``devices``) and every receiver re-quantizes locally.
-    Returns ``(received, payload_bytes)``."""
+    """The baseline panel broadcast: the raw f64 block travels and every
+    receiver re-quantizes locally. Returns ``(received, payload_bytes)``: a
+    block per device, and the size of ONE copy."""
     x = torch.tensor(x, dtype=torch.float64) if isinstance(x, np.ndarray) else \
         x.to(torch.float64)
     payload = int(x.numel() * x.element_size())
-    if not devices:
-        return [x], payload
     return [x.to(d) for d in devices], payload
 
 

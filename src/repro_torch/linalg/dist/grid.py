@@ -10,21 +10,20 @@ dense kernel call (the trailing update: ONE emulated GEMM per rank).
 This is a single-controller SPMD program, as the reference's: all ranks
 live in one process, rank-local storage is host numpy, and communication is
 explicit: device-placed plan/block broadcasts and the pivot
-argmax-allreduce over a ``launch.mesh`` grid mesh when P*Q distinct devices
-of the entry point's device type are visible, with host-mediated fallbacks
-of the same semantics otherwise. Without a mesh every rank's blocks run on
-the entry point's device (the card unless the caller asks for the CPU): on
-one H100 a 2 x 2 grid runs every rank's GEMM on ``cuda:0``. Bytes on the
-wire are counted either way.
+argmax-allreduce over a ``launch.mesh`` grid mesh. The mesh takes P*Q
+distinct devices of the entry point's device type when that many are
+visible, and otherwise repeats the entry point's device (the card unless
+the caller asks for the CPU): on one H100 a 2 x 2 grid runs every rank's
+GEMM on ``cuda:0``, and the CPU, one card and four cards run the same
+code. The reference's host-fallback collectives exist because a JAX mesh
+cannot repeat a device; a ``launch.mesh.Mesh`` can, so there are none.
 """
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
 
-from repro_torch.core.distributed import argmax_allreduce, argmax_allreduce_host
+from repro_torch.core.distributed import argmax_allreduce
 from repro_torch.core.gemm import resolve_device
 from repro_torch.launch.mesh import make_grid_mesh
 
@@ -44,22 +43,20 @@ def parse_grid(spec: str) -> tuple[int, int]:
 class ProcessGrid:
     """P x Q process grid: owner maps, rank devices, and grid collectives.
 
-    ``device`` is the entry point's device (None: the card).
-    ``collectives="auto"`` uses the mesh collectives when P*Q distinct
-    devices of that device's type are visible and the host fallbacks
-    otherwise; ``"mesh"`` requires the mesh (raises if the devices are
-    short); ``"host"`` forces the fallbacks.
+    ``device`` is the entry point's device (None: the card). ``mesh`` is
+    the ``("row", "col")`` device mesh: P*Q distinct visible devices of that
+    device's type when there are enough, else that device repeated.
     """
 
-    def __init__(self, nprow: int, npcol: int, *, collectives: str = "auto", device=None):
+    def __init__(self, nprow: int, npcol: int, *, device=None):
         if nprow < 1 or npcol < 1:
             raise ValueError(f"grid dims must be >= 1, got {nprow}x{npcol}")
-        if collectives not in ("auto", "mesh", "host"):
-            raise ValueError(f"collectives must be auto|mesh|host, got {collectives!r}")
         self.nprow = nprow
         self.npcol = npcol
-        self._collectives = collectives
         self.entry_device = resolve_device(device)
+        devs = self.visible_devices()
+        self.mesh = make_grid_mesh(nprow, npcol, devs[:self.size]
+                                   if len(devs) >= self.size else self.entry_device)
 
     # ---- identity ----
     @property
@@ -105,44 +102,22 @@ class ProcessGrid:
             return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         return [torch.device(self.entry_device.type)]
 
-    @functools.cached_property
-    def mesh(self):
-        """The ``("row", "col")`` device mesh, or None when the distinct
-        visible devices cannot host the grid (host-fallback collectives)."""
-        devs = self.visible_devices()
-        if self._collectives != "host" and len(devs) >= self.size:
-            return make_grid_mesh(self.nprow, self.npcol, devs[:self.size])
-        if self._collectives == "mesh":
-            raise RuntimeError(
-                f"{self!r} needs {self.size} distinct {self.entry_device.type} devices "
-                f"for mesh collectives, found {len(devs)}")
-        return None
-
     def device(self, p: int, q: int) -> torch.device:
-        """The device hosting rank (p, q): its mesh device, or the entry
-        point's device without a mesh."""
-        if self.mesh is None:
-            return self.entry_device
+        """The device hosting rank (p, q)."""
         return self.mesh.devices[p, q]
 
     def row_devices(self, p: int, *, skip: int | None = None) -> list:
         """Devices of process row ``p`` (broadcast receivers along the row),
-        optionally skipping the owner column ``skip``; none without a mesh."""
-        if self.mesh is None:
-            return []
+        optionally skipping the owner column ``skip``."""
         return [self.device(p, q) for q in range(self.npcol) if q != skip]
 
     def col_devices(self, q: int, *, skip: int | None = None) -> list:
-        if self.mesh is None:
-            return []
         return [self.device(p, q) for p in range(self.nprow) if p != skip]
 
     def argmax_allreduce(self, vals, idxs) -> tuple[float, int]:
         """Pivot-search collective along the process-row axis: one candidate
         ``(value, global_row)`` per process row; ties -> smallest index."""
-        if self.mesh is not None:
-            return argmax_allreduce(vals, idxs, self.mesh, "row")
-        return argmax_allreduce_host(vals, idxs)
+        return argmax_allreduce(vals, idxs, self.mesh, "row")
 
 
 class BlockCyclicMatrix:

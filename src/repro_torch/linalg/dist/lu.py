@@ -74,15 +74,16 @@ def resolve_panel_wire(pol, panel_wire: str | None) -> str:
 
 def broadcast_block(x: np.ndarray, role: str, pol, panel_wire: str, owner_dev, devs: list):
     """One panel broadcast from its owner: returns ``(owner's operand,
-    received operands, payload bytes)``. Plans: quantized once on the
-    owner's device, the wire to each receiver (in place without devices).
-    f64: the raw block travels and receivers quantize at their GEMM."""
+    received operands, payload bytes)``, one received operand for each of
+    ``devs``. Plans: quantized once on the owner's device, the wire to each
+    receiver. f64: the raw block travels and receivers quantize at their
+    GEMM."""
     if panel_wire == "plans":
         owner = prepare(x, role, pol, device=owner_dev)
         recv, payload = broadcast_plan(owner, devs)
     else:
         recv, payload = broadcast_f64(x, devs)
-        owner = recv[0] if not devs else broadcast_f64(x, [owner_dev])[0][0]
+        owner = broadcast_f64(x, [owner_dev])[0][0]
     return owner, recv, payload
 
 
@@ -116,7 +117,7 @@ def lu_factor_dist(a, policy=None, *, grid=(2, 2), block: int = DEFAULT_BLOCK,
     nb = BlockCyclicMatrix.num_blocks(n, block)
     perm = np.arange(n)
     stats = {"policy": pol.spec, "grid": f"{g.nprow}x{g.npcol}", "n": n, "block": block,
-             "panel_wire": panel_wire, "mesh_collectives": g.mesh is not None,
+             "panel_wire": panel_wire, "mesh_collectives": True,
              "wire_bytes": 0, "f64_bytes": 0, "swap_bytes": 0,
              "panel_bcast_bytes": 0, "pivot_collectives": 0,
              "timings": {"panel": 0.0, "trsm": 0.0, "broadcast": 0.0, "update": 0.0}}
@@ -198,9 +199,7 @@ def _factor_loop(A: BlockCyclicMatrix, perm: np.ndarray, stats: dict, pol, g: Pr
             l11_recv, l11_payload = broadcast_f64(l11, g.row_devices(pk, skip=qk))
             stats["f64_bytes"] += l11_payload * (Q - 1)
             stats["wire_bytes"] += l11_payload * (Q - 1)
-            others = [q for q in range(Q) if q != qk]
-            l11_by_q = (dict(zip(others, l11_recv)) if g.mesh is not None
-                        else {q: l11_recv[0] for q in range(Q)})
+            l11_by_q = dict(zip((q for q in range(Q) if q != qk), l11_recv))
             l11_by_q[qk] = l11
             for q in range(Q):
                 ctail = A.local_col_tail(q, K + 1)
@@ -226,8 +225,7 @@ def _factor_loop(A: BlockCyclicMatrix, perm: np.ndarray, stats: dict, pol, g: Pr
                 stats["wire_bytes"] += payload * (Q - 1)
                 stats["f64_bytes"] += l21.nbytes * (Q - 1)
                 l21_at[(p, qk)] = owner
-                for idx, q in enumerate(q for q in range(Q) if q != qk):
-                    l21_at[(p, q)] = recv[idx] if devs else recv[0]
+                l21_at.update(zip(((p, q) for q in range(Q) if q != qk), recv))
             for q in range(Q):
                 u12 = A.local(pk, q)[lr0:lr0 + b, A.local_col_tail(q, K + 1):]
                 if not u12.shape[1]:
@@ -238,8 +236,7 @@ def _factor_loop(A: BlockCyclicMatrix, perm: np.ndarray, stats: dict, pol, g: Pr
                 stats["wire_bytes"] += payload * (P - 1)
                 stats["f64_bytes"] += u12.nbytes * (P - 1)
                 u12_at[(pk, q)] = owner
-                for idx, p in enumerate(p for p in range(P) if p != pk):
-                    u12_at[(p, q)] = recv[idx] if devs else recv[0]
+                u12_at.update(zip(((p, q) for p in range(P) if p != pk), recv))
         stats["timings"]["broadcast"] += sp.elapsed
 
         # ---- 4. trailing update: ONE emulated GEMM per rank ----

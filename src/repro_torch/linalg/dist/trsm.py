@@ -109,9 +109,8 @@ def _substitution_sweep(A: BlockCyclicMatrix, y: dict[int, np.ndarray], pol, *,
         stats["wire_bytes"] += payload * (P - 1)
         stats["f64_bytes"] += x_k.nbytes * (P - 1)
         stats["solve_bcasts"] += 1
-        x_at = {pk: owner}
-        for idx, p in enumerate(p for p in range(P) if p != pk):
-            x_at[p] = recv[idx] if devs else recv[0]
+        x_at = dict(zip((p for p in range(P) if p != pk), recv))
+        x_at[pk] = owner
 
         # 3. off-diagonal update: ONE emulated GEMM per rank of column qk
         for p, (seg, t_blk) in segs.items():

@@ -803,26 +803,36 @@ def test_checkpoint_round_trip_on_card(tmp_path):
 @pytest.mark.parametrize("family,mode", [("fp8-hybrid", "fast"), ("fp8-hybrid", "accurate"),
                                          ("int8", "fast")])
 def test_sharded_gemms_on_card(family, mode):
-    """A 2 x 4 mesh of the card: k-sharded on K6 + K3/K4 and mn-sharded on
-    K2 / pair_exponents + K1 equal '+core' bitwise; fast k-sharding equals
-    the single-device ozmm."""
+    """A 2 x 4 mesh of the card: every k shard's residue products on K6 +
+    K3/K4 and every mn block on K2 / pair_exponents + K1 equal the core
+    route's bitwise; fast k-sharding equals the single-device ozmm."""
     if not torch.cuda.is_available():
         pytest.skip("needs the CUDA card")
     from repro_torch.core import distributed as dist
+    from repro_torch.core.moduli import DEFAULT_NUM_MODULI, make_moduli_set
     from repro_torch.launch import make_mesh
 
     rng = np.random.default_rng(5)
     a = torch.from_numpy(_lognormal(rng, (256, 1024), 1.0)).cuda()
     b = torch.from_numpy(_lognormal(rng, (1024, 256), 1.0)).cuda()
     mesh = make_mesh((2, 4), ("data", "model"), devices="cuda")
-    kw = dict(family=family, mode=mode)
-    got = dist.ozmm_k_sharded(a, b, mesh, **kw)
-    assert torch.equal(got, dist.ozmm_k_sharded(a, b, mesh, backend="core", **kw))
+    ms = make_moduli_set(family, DEFAULT_NUM_MODULI[family])
+    got = dist.ozmm_k_sharded(a, b, mesh, family=family, mode=mode)
     if mode == "fast":
         scheme = "ozaki2-int8" if family == "int8" else "ozaki2-fp8"
         assert torch.equal(got, ozmm(a, b, f"{scheme}/fast"))
-    got = dist.ozmm_mn_sharded(a, b, mesh, **kw)
-    assert torch.equal(got, dist.ozmm_mn_sharded(a, b, mesh, backend="core", **kw))
+    a_sh, b_sh = [a[:, s:s + 256] for s in range(0, 1024, 256)], list(b.split(256))
+    lmu, lnu = dist.k_sharded_exponents(a_sh, b_sh, 1024, ms, mode, a.device)
+    for xa, xb in zip(a_sh, b_sh):
+        for kern, core in zip(dist.k_shard_residues(xa, xb, lmu, lnu, ms, "pallas"),
+                              dist.k_shard_residues(xa, xb, lmu, lnu, ms, "core")):
+            assert torch.equal(kern, core)
+    got = dist.ozmm_mn_sharded(a, b, mesh, family=family, mode=mode)
+    for rs in range(0, 256, 128):
+        for cs in range(0, 256, 64):
+            xa, xb = a[rs:rs + 128], b[:, cs:cs + 64]
+            assert torch.equal(got[rs:rs + 128, cs:cs + 64],
+                               dist.mn_shard(xa, xb, ms, mode, "core"))
 
 
 @pytest.mark.cuda

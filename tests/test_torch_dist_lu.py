@@ -3,9 +3,11 @@ against repro.linalg.dist on the same numpy inputs, on the CPU.
 
 The reference runs with ``collectives="host"``: its mesh collectives do not
 run under this JAX (tests/linalg/test_dist_lu.py's subprocess and 1 x 1
-cases fail), and its host fallbacks have the same semantics. Each
-reference run is computed once for the module, at block 16 and sizes whose
-rank blocks share a few shapes (each shape is a JAX compile).
+cases fail), and its host fallbacks have the same semantics as the port's
+mesh collectives, which run on every grid (the CPU's one device repeated
+over the ranks). Each reference run is computed once for the module, at
+block 16 and sizes whose rank blocks share a few shapes (each shape is a
+JAX compile).
 
 Tolerances: ``lu_factor_dist`` under ozaki2-fp8/fast bitwise equal to the
 reference's (pivots, factors and the communication stats: the port's lower
@@ -18,7 +20,9 @@ reference's result under native.
 """
 import numpy as np
 import pytest
+import torch
 
+from repro.core.distributed import argmax_allreduce_host as ref_argmax_host
 from repro.linalg.dist import BlockCyclicMatrix as RefBCM
 from repro.linalg.dist import ProcessGrid as RefGrid
 from repro.linalg.dist import lu_factor_dist as ref_lu_factor_dist
@@ -101,19 +105,20 @@ def test_layout_matches_reference(rng, grid):
 
 
 def test_grid_collectives_modes():
-    """On the CPU one distinct device exists: "auto" falls back to the host
-    collectives beyond a 1 x 1 grid, "mesh" raises, "host" forces the
-    fallback; a 1 x 1 grid gets a mesh, and both paths pick the same pivot."""
-    assert dist.ProcessGrid(2, 2, device=CPU).mesh is None
-    assert dist.ProcessGrid(1, 1, collectives="host", device=CPU).mesh is None
-    with pytest.raises(RuntimeError, match="distinct cpu devices"):
-        dist.ProcessGrid(2, 1, collectives="mesh", device=CPU).mesh  # noqa: B018
-    one = dist.ProcessGrid(1, 1, collectives="mesh", device=CPU)
-    assert one.mesh.shape == {"row": 1, "col": 1} and one.device(0, 0).type == "cpu"
-    assert one.argmax_allreduce([2.5], [7]) == (2.5, 7)
+    """Every grid has a mesh: on the CPU, one distinct device, the entry
+    device repeated over the ranks; broadcasts reach every other rank of a
+    row or column, and the mesh collective picks the reference's host
+    collective's pivot, ties included."""
+    cpu = torch.device(CPU)
     two = dist.ProcessGrid(2, 2, device=CPU)
-    assert two.argmax_allreduce([2.0, 2.0], [30, 7]) == (2.0, 7)
-    assert two.row_devices(0) == [] and two.device(1, 1).type == "cpu"
+    assert two.mesh.shape == {"row": 2, "col": 2}
+    assert set(two.mesh.devices.flat) == {cpu} and two.device(1, 1) == cpu
+    assert two.row_devices(0, skip=1) == [cpu] and two.col_devices(1) == [cpu, cpu]
+    assert dist.ProcessGrid(4, 1, device=CPU).row_devices(2, skip=0) == []
+    one = dist.ProcessGrid(1, 1, device=CPU)
+    assert one.mesh.shape == {"row": 1, "col": 1}
+    assert one.argmax_allreduce([2.5], [7]) == ref_argmax_host([2.5], [7]) == (2.5, 7)
+    assert two.argmax_allreduce([2.0, 2.0], [30, 7]) == ref_argmax_host([2.0, 2.0], [30, 7])
     with pytest.raises(ValueError, match="runs on cpu"):
         dist.lu_factor_dist(np.eye(4), FAST, grid=two, device="meta")
 
@@ -130,7 +135,7 @@ def test_lu_factor_dist_fast_bitwise(ref_runs, n, grid, wire):
     np.testing.assert_array_equal(perm, perm_want)
     np.testing.assert_array_equal(lu.to_global(), lu_want)
     assert {k: stats[k] for k in STAT_KEYS} == {k: stats_want[k] for k in STAT_KEYS}
-    assert stats["mesh_collectives"] is False
+    assert stats["mesh_collectives"] is True
     lu_s, perm_s = linalg.lu_factor(a, FAST, block=16, device=CPU)
     np.testing.assert_array_equal(perm, perm_s)
     np.testing.assert_array_equal(lu.to_global(), lu_s)
@@ -158,15 +163,17 @@ def test_lu_solve_dist_matches_reference(ref_runs, n, grid, wires):
 
 def test_run_hpl_dist_native_matches_reference():
     """n = 32, block 16, 2 x 2 (one block a rank) under native (raw f64 on
-    the wire): the reference's result dict, keys and bytes, and its
-    residual within a factor of 4."""
+    the wire): the reference's result dict, keys and bytes (its
+    ``mesh_collectives`` is False: the reference ran its host fallback,
+    the port its mesh), and its residual within a factor of 4."""
     want = ref_run_hpl_dist(32, "native", grid=RefGrid(2, 2, collectives="host"), block=16)
     got = dist.run_hpl_dist(32, "native", grid=(2, 2), block=16, device=CPU)
     assert set(got) == set(want)
     assert got["passed"] and got["scaled_residual"] <= linalg.HPL_THRESHOLD
-    for key in ("n", "block", "grid", "scheme", "mode", "policy", "panel_wire",
-                "mesh_collectives", "refine_steps", "wire_bytes", "f64_bytes", "swap_bytes",
-                "epilogue_wire_bytes", "epilogue_f64_bytes"):
+    assert got["mesh_collectives"] and not want["mesh_collectives"]
+    for key in ("n", "block", "grid", "scheme", "mode", "policy", "panel_wire", "refine_steps",
+                "wire_bytes", "f64_bytes", "swap_bytes", "epilogue_wire_bytes",
+                "epilogue_f64_bytes"):
         assert got[key] == want[key], key
     assert want["scaled_residual"] / 4 <= got["scaled_residual"] <= 4 * want["scaled_residual"]
 

@@ -11,8 +11,8 @@ same numpy inputs, on the CPU.
   no longer runs under this JAX): k-sharded fast bitwise equal to the
   reference's single-device ``ozmm``, mn-sharded accurate bitwise equal to
   the reference's ``ozmm_prepared`` on each block, k-sharded accurate within
-  the reference's two gates; the kernel route's plain versions (K1/K2,
-  K6 + K3/K4) bitwise equal to the core route.
+  the reference's two gates; shard by shard, the kernel route's plain
+  versions (K1/K2, K6 + K3/K4) bitwise equal to the core route.
 * Collectives and compression: bitwise (the reference's psum over replicas
   evaluated under ``jax.vmap`` with an axis name).
 """
@@ -42,8 +42,8 @@ from repro_torch.optim import compress
 from _torch_models_parity import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
-#: (family, moduli): the hybrid at 7 moduli holds 6 square and 1 Karatsuba.
-WIRE_CASES = [("fp8-hybrid", 7), ("fp8-karatsuba", 3), ("int8", 4)]
+#: (family, moduli): the hybrid at its default 12 (6 square, 6 Karatsuba).
+WIRE_CASES = [("fp8-hybrid", 12), ("fp8-karatsuba", 3), ("int8", 4)]
 
 
 def as_tensor(x) -> torch.Tensor:
@@ -62,10 +62,12 @@ def leaf_bytes(t: torch.Tensor) -> np.ndarray:
 @pytest.fixture(scope="module")
 def wire_refs():
     """Per (family, moduli, mode): the reference's wire of an lhs and an rhs
-    plan and its ozmm_prepared of the pair (each shape one JAX compile)."""
+    plan and its ozmm_prepared of the pair, at the mn-sharded test's block
+    shapes (each shape and policy is one JAX compile, which the hybrid's
+    accurate case shares with that test)."""
     rng = np.random.default_rng(11)
-    a = (rng.random((24, 40)) - 0.5) * np.exp(rng.standard_normal((24, 40)))
-    b = (rng.random((40, 16)) - 0.5) * np.exp(rng.standard_normal((40, 16)))
+    a = (rng.random((32, 512)) - 0.5) * np.exp(rng.standard_normal((32, 512)))
+    b = (rng.random((512, 16)) - 0.5) * np.exp(rng.standard_normal((512, 16)))
     out = {}
     for family, n in WIRE_CASES:
         ms = ref_moduli_set(family, n)
@@ -117,8 +119,7 @@ def test_wire_version_guard_and_e4m3_bytes():
 
 def test_broadcasts_place_and_count(rng):
     """broadcast_plan: one payload, a plan per receiver device, each pairing
-    bitwise equal to the owner's; without devices, in place. broadcast_f64:
-    the f64 block's bytes."""
+    bitwise equal to the owner's; broadcast_f64: the f64 block's bytes."""
     ms = make_moduli_set("fp8-hybrid", 7)
     x = torch.from_numpy(rng.random((16, 24)) - 0.5)
     y = tplan.quantize_matrix(torch.from_numpy(rng.random((24, 8)) - 0.5), "rhs", ms, mode="fast")
@@ -126,7 +127,7 @@ def test_broadcasts_place_and_count(rng):
     want = tplan.ozmm_prepared(owner, y)
     for devices in ((), (CPU, CPU)):
         recv, payload = dist.broadcast_plan(owner, devices)
-        assert len(recv) == max(1, len(devices))
+        assert len(recv) == len(devices)
         assert payload == tplan.wire_bytes(tplan.plan_to_wire(owner)[1])
         for q in recv:
             assert q.x is None
@@ -150,17 +151,30 @@ def _plain_calls():
             kn.ozmm_fused_raw_ref.calls, kn.ozmm_fused_parts_ref.calls)
 
 
+def k_shards_agree(a, b, ranks: int, family: str, num_moduli: int, mode: str) -> None:
+    """Every k shard's centred residue products under the global exponents:
+    the kernel route (its plain versions here) bitwise the core route."""
+    ms = make_moduli_set(family, num_moduli)
+    a, b = torch.from_numpy(a), torch.from_numpy(b)
+    step = a.shape[1] // ranks
+    a_sh = [a[:, r * step:(r + 1) * step] for r in range(ranks)]
+    b_sh = [b[r * step:(r + 1) * step] for r in range(ranks)]
+    lmu, lnu = dist.k_sharded_exponents(a_sh, b_sh, a.shape[1], ms, mode, CPU)
+    for xa, xb in zip(a_sh, b_sh):
+        for kern, core in zip(dist.k_shard_residues(xa, xb, lmu, lnu, ms, "pallas"),
+                              dist.k_shard_residues(xa, xb, lmu, lnu, ms, "core")):
+            assert torch.equal(kern, core)
+
+
 def test_k_sharded_fast_bitwise_equals_reference_ozmm(sharded_case):
     """2 x 4 mesh, k over "model" (4 slices of 128): bitwise the reference's
-    unsharded ozmm, on the core route and on the kernel route (per shard
-    K6 twice and 3N K3 products, their plain versions here)."""
+    unsharded ozmm; each shard's kernel route (K6 twice and 3N K3 products,
+    their plain versions here) bitwise its core route."""
     a, b, want = sharded_case
     mesh = make_mesh((2, 4), ("data", "model"), devices=CPU)
-    got = dist.ozmm_k_sharded(a, b, mesh, mode="fast", backend="core")
-    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(dist.ozmm_k_sharded(a, b, mesh, mode="fast").numpy(), want)
     before = _plain_calls()
-    got = dist.ozmm_k_sharded(a, b, mesh, mode="fast", backend="pallas")
-    np.testing.assert_array_equal(got.numpy(), want)
+    k_shards_agree(a, b, 4, "fp8-hybrid", 12, "fast")
     moved = tuple(y - x for x, y in zip(before, _plain_calls()))
     assert moved == (2 * 4, 3 * 12 * 4, 0, 0, 0)
     assert dist.collective_bytes_per_output_elem("fp8-hybrid", 12, "mn") == 0
@@ -172,53 +186,53 @@ def test_k_sharded_accurate_meets_the_reference_gates(sharded_case):
     scale exponent by one against the unsharded run, so accurate mode is held
     to the reference script's gates: componentwise error < 2^-49 and <= 4x
     the unsharded error (the port's single-device ozmm, which
-    tests/test_torch_ozaki2_fp8.py holds bitwise to the reference's); the
-    kernel route equals core."""
+    tests/test_torch_ozaki2_fp8.py holds bitwise to the reference's); each
+    shard's kernel route equals its core route."""
     a, b, _ = sharded_case
     mesh = make_mesh((2, 4), ("data", "model"), devices=CPU)
-    got = dist.ozmm_k_sharded(a, b, mesh, mode="accurate", backend="core").numpy()
+    got = dist.ozmm_k_sharded(a, b, mesh, mode="accurate").numpy()
     ref, denom = a @ b, np.abs(a) @ np.abs(b)
     err = np.max(np.abs(got - ref) / denom)
     unsharded = ozmm(a, b, "ozaki2-fp8/accurate", device=CPU).numpy()
     err_local = np.max(np.abs(unsharded - ref) / denom)
     assert err < 2.0 ** -49, err
     assert err <= 4.0 * max(err_local, 2.0 ** -53), (err, err_local)
-    np.testing.assert_array_equal(
-        dist.ozmm_k_sharded(a, b, mesh, mode="accurate", backend="pallas").numpy(), got)
+    k_shards_agree(a, b, 4, "fp8-hybrid", 12, "accurate")
 
 
 def test_k_sharded_int8_kernel_route_equals_core(sharded_case):
-    """int8 on K4 (its plain version): N products a shard; bitwise core."""
+    """int8, k over 4 ranks: the port's unsharded fast ozmm bit for bit; on
+    K4 (its plain version) N products a shard, bitwise the core route."""
     a, b, _ = sharded_case
     mesh = make_mesh((4,), ("model",), devices=CPU)
+    got = dist.ozmm_k_sharded(a, b, mesh, family="int8", num_moduli=6)
+    assert torch.equal(got, ozmm(a, b, "ozaki2-int8/fast@6", device=CPU))
     before = _plain_calls()
-    got = dist.ozmm_k_sharded(a, b, mesh, family="int8", num_moduli=6, backend="pallas")
+    k_shards_agree(a, b, 4, "int8", 6, "fast")
     assert tuple(y - x for x, y in zip(before, _plain_calls())) == (8, 0, 6 * 4, 0, 0)
-    assert torch.equal(got, dist.ozmm_k_sharded(a, b, mesh, family="int8", num_moduli=6,
-                                                backend="core"))
 
 
 def test_mn_sharded_accurate_bitwise_per_block(sharded_case):
     """2 x 4 mesh: each (32 x 512) @ (512 x 16) block is the reference's
-    ozmm_prepared of that block's plans, bit for bit; the kernel route
-    (pair_exponents + K1's plain version per shard) equals core, and so
-    does fast mode's K2."""
+    ozmm_prepared of that block's plans, bit for bit; each shard's kernel
+    route (pair_exponents + K1's plain version, and fast mode's K2) equals
+    its core route."""
     a, b, _ = sharded_case
     mesh = make_mesh((2, 4), ("data", "model"), devices=CPU)
-    got = dist.ozmm_mn_sharded(a, b, mesh, mode="accurate", backend="core").numpy()
-    ms = ref_moduli_set("fp8-hybrid", 12)
+    got = dist.ozmm_mn_sharded(a, b, mesh, mode="accurate").numpy()
+    ref_ms, ms = ref_moduli_set("fp8-hybrid", 12), make_moduli_set("fp8-hybrid", 12)
+    before = _plain_calls()
     for i in range(2):
         for j in range(4):
             rs, cs = slice(32 * i, 32 * (i + 1)), slice(16 * j, 16 * (j + 1))
-            qa = ref_quantize_matrix(jnp.asarray(a[rs]), "lhs", ms, mode="accurate")
-            qb = ref_quantize_matrix(jnp.asarray(b[:, cs]), "rhs", ms, mode="accurate")
+            qa = ref_quantize_matrix(jnp.asarray(a[rs]), "lhs", ref_ms, mode="accurate")
+            qb = ref_quantize_matrix(jnp.asarray(b[:, cs]), "rhs", ref_ms, mode="accurate")
             np.testing.assert_array_equal(got[rs, cs], np.asarray(ref_ozmm_prepared(qa, qb)))
-    before = _plain_calls()
-    np.testing.assert_array_equal(
-        dist.ozmm_mn_sharded(a, b, mesh, mode="accurate", backend="pallas").numpy(), got)
-    fast = dist.ozmm_mn_sharded(a, b, mesh, mode="fast", backend="pallas")
+            xa, xb = torch.from_numpy(a[rs]), torch.from_numpy(b[:, cs])
+            for mode in ("accurate", "fast"):
+                assert torch.equal(dist.mn_shard(xa, xb, ms, mode, "pallas"),
+                                   dist.mn_shard(xa, xb, ms, mode, "core"))
     assert tuple(y - x for x, y in zip(before, _plain_calls())) == (0, 0, 0, 8, 8)
-    assert torch.equal(fast, dist.ozmm_mn_sharded(a, b, mesh, mode="fast", backend="core"))
     with pytest.raises(ValueError, match="not divisible"):
         dist.ozmm_mn_sharded(a[:63], b, mesh)
 

@@ -27,7 +27,7 @@ from repro.kernels.fused.kernel import ozmm_fused_parts as jax_ozmm_fused_parts
 from repro.kernels.fused.ops import _pad2 as jax_pad2
 from repro.kernels.fused.ops import _pad3 as jax_pad3
 from repro_torch import backend_matmul, ozmm, prepare_operand
-from repro_torch.core.moduli import make_moduli_set
+from repro_torch.core.moduli import DEFAULT_NUM_MODULI, make_moduli_set
 from repro_torch.kernels import fused, stack_parts
 from repro_torch.kernels.fused import kernel as fused_kernel
 
@@ -63,11 +63,9 @@ def _assert_stacks_equal(got, want, family: str) -> None:
         np.testing.assert_array_equal(_bytes(g), _bytes(w))
 
 
-#: 7 moduli a family, as tests/test_torch_fused_prepared.py (the hybrid's
-#: 6 square and 1 Karatsuba: both product schedules): the interpreter's
-#: compile grows with the count, the kernel's arithmetic per modulus does
-#: not depend on it, and the two files share the interpreter's compiles.
-CASES = [("fp8-hybrid", 7), ("fp8-karatsuba", 7), ("int8", 7),
+CASES = [("fp8-hybrid", DEFAULT_NUM_MODULI["fp8-hybrid"]),
+         ("fp8-karatsuba", DEFAULT_NUM_MODULI["fp8-karatsuba"]),
+         ("int8", DEFAULT_NUM_MODULI["int8"]),
          ("fp8-hybrid", 2)]  # two square moduli: every hs slice is zero-filled
 
 

@@ -4,8 +4,12 @@ interpret mode on the same numpy inputs, fast mode (the plain version of
 K2) and accurate mode (the plain version of K1 under the bound GEMM's
 exponents), for the three Ozaki-II families at 250x94x61, at 7 moduli
 each (the hybrid's 6 square and 1 Karatsuba: both product schedules; the
-interpreter's compile grows with the count, and the kernel's arithmetic
-per modulus does not depend on it). Tolerance: bitwise."""
+interpreter's compile and run grow with the count). At each family's
+default count, tests/test_torch_fused_parts.py holds K2's plain version
+and these fast prepared pairings ('+pallas', plan x plan and plan x raw)
+against the reference's kernel, and tests/test_torch_ozaki2_{fp8,
+karatsuba,int8}.py hold K1's plain version ('+pallas', both modes).
+Tolerance: bitwise."""
 import numpy as np
 import pytest
 

@@ -22,11 +22,9 @@ def rel(got, want) -> float:
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
-@pytest.mark.parametrize("mode,n", [("fast", 72), ("accurate", 64)])
+@pytest.mark.parametrize("mode,n", [("fast", 100), ("accurate", 96)])
 def test_lu_factor_and_solve_match_reference(rng, mode, n):
-    """Ragged n = 72 (block 32: 32 + 32 + 8) in fast mode, n = 64 in
-    accurate mode (each block shape of the reference's factorization and
-    solve is a jit compile)."""
+    """Ragged n = 100 (block 32) in fast mode, n = 96 in accurate mode."""
     spec = f"ozaki2-fp8/{mode}"
     a, b = rng.random((n, n)) - 0.5, rng.random((n, 2)) - 0.5
     lu_want, perm_want = jax_linalg.lu_factor(a, spec, block=32)

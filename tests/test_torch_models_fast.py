@@ -7,12 +7,10 @@ tokens, on the kernel route's plain versions ('+pallas': K2's) and on
 '+core'.
 
 The reference compiles its prepared GEMMs at every shape, ~1.2 s each on
-a CPU (15 a step) at the default 12 moduli, so each of its steps is
-computed once for the module, at 7 moduli (6 square, 1 Karatsuba: both
-product schedules; the compile grows with the count, and the paths held
-here do not depend on it); its cached plans are the port's (held bitwise
-equal to its own quantization by test_torch_serve.py), which saves its
-quantization pass."""
+a CPU (15 a step), so each of its steps is computed once for the module;
+its cached plans are the port's (held bitwise equal to its own
+quantization by test_torch_serve.py), which saves its quantization
+pass."""
 import numpy as np
 import pytest
 
@@ -24,7 +22,7 @@ from _torch_families_parity import family_pair
 from _torch_models_parity import (ARCH, assert_logits_close, one_torch_thread,  # noqa: F401
                                   ref_params_with_plans)
 
-FAST = "ozaki2-fp8/fast@7"
+FAST = "ozaki2-fp8/fast"
 TOKS = np.random.default_rng(6).integers(1, 512, (2, 8))
 LENGTHS = np.array([8, 5], np.int32)
 BT = np.array([[1, 2, 3], [4, 5, 6]], np.int32)
