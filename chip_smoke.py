@@ -15,7 +15,8 @@ script exits non-zero without printing a result:
 1. card: name and power limit; build of the CUDA kernels from csrc/ (one
    nvcc per source, all started together), with ptxas's registers, shared
    memory, stack frame, spills and wgmma serialization notes (C75xx) of
-   each kernel; K5's and K6's must have no stack frame and no spill.
+   each kernel; K5's and K6's must have no stack frame and no spill, K1/K2's
+   GEMM core no spill.
 2. MMA probes: K3/K4's mma.sync k32 FP8 step, and the K1/K2 GEMM core's
    wgmma step (each k32 product into a fresh f32 fragment, promoted into an
    f32 sum), on +-16 and mixed e4m3 patterns at k up to 65536 against an
@@ -48,6 +49,22 @@ script exits non-zero without printing a result:
    transpose and core, beside K1's, cuBLAS DGEMM's and the same 3N FP8 (N
    int8) products through torch._scaled_mm (torch._int_mm), yardsticks the
    port never calls.
+6b. past the core's chunk of k = 2^16, and the digit stack: K2 (ozaki2-fp8,
+   12 moduli) on phase 2's probe patterns turned into parts (square moduli
+   (v, v), Karatsuba (v, 0, v)), with row 4 of A and column 4 of B +16 then
+   +1 so their sum ends odd past 2^24, at k = 3 * 2^16 + 128 on one
+   128 x 128 tile: its digits (reconstruct="xla") bitwise equal to its plain
+   version's and to the exact int64 residue products', its C to its plain
+   version's, and one f32 product over the whole k shown not exact (max
+   |sum| past 2^24, elements differing); K1 on lognormal phi = 0.5 operands
+   at 512 x 2^18 x 512, fast and accurate: bitwise equal to its plain version
+   and to ozmm, and on 4 rows within twice DGEMM's componentwise error bound
+   (2k 2^-53 |A||B|) of a long-double product, timed beside its plain
+   version, bound and cuBLAS DGEMM; K1 and K2 (fast) at the main-path size
+   with reconstruct="xla": the digits bitwise equal to their plain versions',
+   crt.reconstruct of them bitwise equal to the on-chip epilogue's C, each
+   timed beside its on-chip mode; ozmm_pallas_fused with reconstruct="xla"
+   bitwise equal to ozmm.
 7. linalg on the card: run_hpl(n, policy, block=128, refine_steps=1) for
    native (cuBLAS DGEMM through the same driver) and ozaki2-fp8/fast (K2 on
    every trailing update and TRSM fold) at n = --hpl-n / 2, and
@@ -78,7 +95,8 @@ script exits non-zero without printing a result:
    the mma_sync route (A 1 byte off alignment); K3 also against
    torch._scaled_mm and K4 against torch._int_mm (oracles the port never
    calls) where their shape rules allow; K3 exact at k = 65536 on both
-   routes for +-16 and "+16 then +1" parts; then the path itself: ozmm(a,
+   routes for +-16 and "+16 then +1" parts, K4 at its limit k = 2^17 for
+   +-127 and "+127 then +1"; then the path itself: ozmm(a,
    b, spec + "+pallas+unfused") at the main-path size for the four
    policies, each launch count (K6 2, K3 3N or K4 N, K5 1 a call) and
    route count moving by the predicted amount and no B copied by a GEMM
@@ -220,7 +238,14 @@ script exits non-zero without printing a result:
    accumulating ops (the embedding gather's, take_along_dim's, the dispatch
    einsum's) give the same bits twice (the phase needs no
    torch.use_deterministic_algorithms: the probe found all three
-   deterministic on the card).
+   deterministic on the card). (d) qwen2-7b at its published widths
+   (d_model 3584, 28/4 heads x 128, d_ff 18944, gated SiLU MLP, QKV bias,
+   vocab 152064, untied lm_head, remat "full"), cut to 2 of 28 layers, as
+   (a) on 2 steps and without the native run: lm_head's input gradient
+   contracts over the 152,064 vocabulary rows, three of K1's chunks of
+   2^16. The same checks and split as (a), and K1 at that shape (1024 x
+   152064 x 3584; its plain version on column blocks of B) beside its
+   plain version, bound and cuBLAS DGEMM; the part's seconds.
 
 13. distributed (core.distributed, linalg.dist), every rank on the card:
    (a) ozmm_mn_sharded (accurate: pair_exponents + K1 a shard; fast: K2)
@@ -245,8 +270,10 @@ script exits non-zero without printing a result:
 
 The last two lines are the card (nvidia-smi name, power limit) and
 {"ok": true, "device": {...}}; before them a {"kernels": [...]} line, whose
-rows are the main path's kernels and then each phase's rows; the last five
-are K1, K2, K3, K4 and K6 at phase 13's shard shapes, with (a)'s launches.
+rows are the main path's kernels and then each phase's rows (6b's: K1 at
+the long contraction, K1 and K2 in digits mode; 12's: K1 at (a)'s and
+(d)'s lm_head input gradients); the last five are K1, K2, K3, K4 and K6 at
+phase 13's shard shapes, with (a)'s launches.
 """
 from __future__ import annotations
 
@@ -320,8 +347,9 @@ def lognormal(gen, shape, phi, device):
     return (u - 0.5) * torch.exp(z * phi)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median wall time of fn on the card (CUDA events), after one warm-up."""
+def cuda_times(fn, reps: int = 5) -> list[float]:
+    """Wall times of ``reps`` calls of fn on the card (CUDA events, ms),
+    after one warm-up."""
     import torch
 
     fn()
@@ -333,7 +361,12 @@ def cuda_ms(fn, reps: int = 5) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Median wall time of fn on the card (CUDA events), after one warm-up."""
+    return statistics.median(cuda_times(fn, reps))
 
 
 class CallTotals:
@@ -472,24 +505,29 @@ def check_equal(x, y, what: str) -> None:
                        f"{idx}: {x[idx].item()!r} vs {y[idx].item()!r}")
 
 
-def probe_operands(k: int, device, rows: int = 16):
-    """A (rows, k) and B (k, 8) e4m3 patterns: all +16, alternating +-16 (two
-    phases), +16 then +1 (a small tail after a large running sum), and
-    seeded random integers in [-16, 16]."""
+def probe_operands(k: int, device, rows: int = 16, cols: int = 8, big: int = 16):
+    """A (rows, k) and B (k, cols) patterns: all +big, alternating +-big (two
+    phases), +big then +1 (a small tail after a large running sum), and
+    seeded random integers in [-big, big]; e4m3 for big = 16, else int8.
+    Returns them with their exact int64 product (on the CPU)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(11)
     idx = np.arange(k)
-    alt = np.where(idx % 2 == 0, 16, -16)
-    alt2 = np.where((idx // 2) % 2 == 0, 16, -16)
-    tail = np.where(idx < k // 2, 16, 1)
-    a = rng.integers(-16, 17, (rows, k))
-    a[0], a[1], a[2], a[3] = 16, alt, tail, alt2
-    b = rng.integers(-16, 17, (k, 8))
-    b[:, 0], b[:, 1], b[:, 2], b[:, 3] = 16, alt, tail, alt2
-    f8 = lambda x: torch.tensor(x, dtype=torch.float32, device=device).to(torch.float8_e4m3fn)
-    return f8(a), f8(b), torch.tensor(a) @ torch.tensor(b)
+    alt = np.where(idx % 2 == 0, big, -big)
+    alt2 = np.where((idx // 2) % 2 == 0, big, -big)
+    tail = np.where(idx < k // 2, big, 1)
+    a = rng.integers(-big, big + 1, (rows, k))
+    a[0], a[1], a[2], a[3] = big, alt, tail, alt2
+    b = rng.integers(-big, big + 1, (k, cols))
+    b[:, 0], b[:, 1], b[:, 2], b[:, 3] = big, alt, tail, alt2
+    # exact in f64 in any order: |sums| <= big^2 k < 2^53
+    a, b = (torch.tensor(x, dtype=torch.float64, device=device) for x in (a, b))
+    want = (a @ b).long().cpu()
+    if big != 16:
+        return a.to(torch.int8), b.to(torch.int8), want
+    return a.float().to(torch.float8_e4m3fn), b.float().to(torch.float8_e4m3fn), want
 
 
 class Swapped:
@@ -556,6 +594,163 @@ def edge_matrix(rng, k: int, device):
     return torch.from_numpy(a).to(device), torch.from_numpy(lscale).to(device)
 
 
+#: Phase 6b: the K2 probe's contraction (three chunks of the core's 2^16 and
+#: one k-tile), K1's long contraction (m, k, n), and the long-double rows of
+#: its gate.
+PROBE_K = 3 * 2 ** 16 + 128
+LONG_SHAPE = (512, 2 ** 18, 512)
+LONG_GATE_ROWS = 4
+
+
+def k_row(name: str, spec: str, shape, launches: int, max_err, ms_kernel: float,
+          ms_plain: float, n_bytes: int, products: int, library_ms, **extra) -> dict:
+    """A kernels line's row of K1 ("ozmm_fused_raw") or K2 ("ozmm_fused_parts")
+    at ``shape`` (m, k, n): its bound from the bytes it must move and its
+    ``products`` FP8 (int8) products of 2mnk operations."""
+    m, k, n = shape
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = products * 2 * m * n * k / H100_FP8_OPS_PER_S * 1e3
+    k1 = name == "ozmm_fused_raw"
+    return {"name": name, "policy": spec, "shape": [m, k, n], "route": "cuda",
+            "source": f"src/repro_torch/csrc/{'fused_raw' if k1 else 'fused_parts'}.cu",
+            "replaces": f"src/repro/kernels/fused/kernel.py:{238 if k1 else 265}",
+            "launches": launches, "max_abs_err": max_err, "ms": ms_kernel, "plain_ms": ms_plain,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "library_ms": library_ms, **extra}
+
+
+def long_k_phase(args, dev, gen, launches: int) -> list[dict]:
+    """Phase 6b (module docstring): K2 on a probe past three chunks, K1 at a
+    long contraction, and the digit stack (reconstruct="xla") of K1 and K2.
+    Returns the kernels line's rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch import ozmm, prepare_operand
+    from repro_torch.core import crt, numerics
+    from repro_torch.core.scaling import compute_scaling
+    from repro_torch.kernels import stack_parts
+    from repro_torch.kernels.fused import (K_CHUNK, KERNEL_TILE, fused_parts_args,
+                                           fused_raw_args, ops, ozmm_fused_parts,
+                                           ozmm_fused_parts_ref, ozmm_fused_raw,
+                                           ozmm_fused_raw_ref)
+    from repro_torch.precision import parse_policy
+
+    spec = "ozaki2-fp8/fast"
+    ms = parse_policy(spec).moduli_set()
+    products = 3 * ms.n
+    rows = []
+
+    # -- K2 on the probe patterns past three chunks, against int64 ----------
+    k = PROBE_K
+    a8, b8, want = probe_operands(k, dev, rows=KERNEL_TILE[0], cols=KERNEL_TILE[1])
+    # row 4 of A and column 4 of B: +16 for the first k/2 + 1, then +1, so
+    # their product ends odd past 2^24, where no f32 sum can hold it
+    tail = torch.where(torch.arange(k, device=dev) <= k // 2, 16.0, 1.0).to(a8.dtype)
+    a8.view(torch.uint8)[4] = tail.view(torch.uint8)
+    b8.view(torch.uint8)[:, 4] = tail.view(torch.uint8)
+    want = (a8.float().double() @ b8.float().double()).long()  # exact: |sums| < 2^53
+    # parts whose residue is w * v: square moduli (v, v) (w = s + 1),
+    # Karatsuba (v, 0, v) (w = 16)
+    zeros = lambda x: torch.zeros_like(x.view(torch.uint8)).view(x.dtype)  # noqa: E731
+    sa = stack_parts([(a8, a8) if sq else (a8, zeros(a8), a8) for sq in ms.is_square], ms)
+    sb = stack_parts([(b8, b8) if sq else (b8, zeros(b8), b8) for sq in ms.is_square], ms)
+    lmu = torch.zeros((KERNEL_TILE[0], 1), dtype=torch.int32, device=dev)
+    lnu = torch.zeros((1, KERNEL_TILE[1]), dtype=torch.int32, device=dev)
+    digits = ozmm_fused_parts(sa, sb, lmu, lnu, ms=ms, reconstruct="xla")
+    check_equal(digits, ozmm_fused_parts_ref(sa, sb, lmu, lnu, ms=ms, reconstruct="xla"),
+                f"K2 digits at k = {k} vs plain version")
+    check_equal(ozmm_fused_parts(sa, sb, lmu, lnu, ms=ms),
+                ozmm_fused_parts_ref(sa, sb, lmu, lnu, ms=ms), f"K2 at k = {k} vs plain version")
+    cs = [numerics.centered_mod(want * (s + 1 if sq else 16) ** 2, p)
+          for p, sq, s in zip(ms.ps, ms.is_square, ms.split_s)]
+    check_equal(digits, crt.garner_digits(cs, ms).to(torch.int16),
+                f"K2 digits at k = {k} vs the exact int64 residue products")
+    f32 = numerics.matmul_exact_fp8(a8, b8)
+    top = int(want.abs().max())
+    check(top > 2 ** 24 and not torch.equal(f32.double(), want.double()),
+          f"the probe at k = {k} does not take one f32 product past its exact range")
+    print(f"  K2 probe k = {k} ({-(-k // K_CHUNK)} chunks of {K_CHUNK}; +16, +-16, +16 then +1 "
+          f"parts, max |sum| {top} > 2^24): digits == plain == exact int64 residue products, C "
+          f"== plain (bitwise); one f32 product over the whole k differs in "
+          f"{int((f32.double() != want.double()).sum())} elements", flush=True)
+    del a8, b8, want, sa, sb, digits, f32
+    torch.cuda.empty_cache()
+
+    # -- K1 at a long contraction, fast and accurate ---------------------------
+    m, k, n = LONG_SHAPE
+    a, b = lognormal(gen, (m, k), 0.5, dev), lognormal(gen, (k, n), 0.5, dev)
+    gate_rows = list(range(0, m, m // LONG_GATE_ROWS))
+    exact, denom = long_double_rows(a, b, gate_rows)
+    dgemm_ms = cuda_ms(lambda: torch.matmul(a, b))
+    for spec_l in ("ozaki2-fp8/fast", "ozaki2-fp8/accurate"):
+        pol = parse_policy(spec_l)
+        msl = pol.moduli_set()
+        scal = compute_scaling(a, b, msl, pol.mode)
+        fa = fused_raw_args(a, scal.lmu, b, scal.lnu, msl, KERNEL_TILE)
+        got, plain = ozmm_fused_raw(*fa, ms=msl), ozmm_fused_raw_ref(*fa, ms=msl)
+        check_equal(got, plain, f"{spec_l} K1 at {m}x{k}x{n} vs plain version")
+        max_err = (got - plain).abs().max().item()
+        del plain
+        check_equal(ozmm(a, b, spec_l), got, f"{spec_l} ozmm at {m}x{k}x{n} vs K1")
+        err = float(np.max(np.abs(got[gate_rows].cpu().numpy() - exact) / denom))
+        gate = 2 * k * 2.0 ** -53
+        check(err <= gate, f"{spec_l} K1 at {m}x{k}x{n}: componentwise error {err} > {gate}")
+        ms_k1 = cuda_ms(lambda: ozmm_fused_raw(*fa, ms=msl))
+        ms_plain = cuda_ms(lambda: ozmm_fused_raw_ref(*fa, ms=msl), 1)
+        n_bytes = sum(t.numel() * t.element_size() for t in fa) + m * n * 8
+        rows.append(k_row("ozmm_fused_raw", spec_l, (m, k, n), launches, max_err, ms_k1,
+                          ms_plain, n_bytes, 3 * msl.n, dgemm_ms, componentwise_err=err))
+        print(f"  {spec_l:20s} K1 {m}x{k}x{n} ({-(-k // K_CHUNK)} chunks): == plain == ozmm "
+              f"(bitwise); componentwise error {err:.3e} of |A||B| (gate 2k 2^-53 = {gate:.3e}); "
+              f"{ms_k1:.2f} ms, plain {ms_plain:.2f} ms, bound {rows[-1]['bound_ms']:.2f} ms "
+              f"({rows[-1]['bound_by']}), cuBLAS DGEMM {dgemm_ms:.2f} ms", flush=True)
+        del fa, got
+        torch.cuda.empty_cache()
+    del a, b
+    torch.cuda.empty_cache()
+
+    # -- the digit stack at the main-path size: K1 and K2 ----------------------
+    big = args.size
+    a, b = lognormal(gen, (big, big), 0.5, dev), lognormal(gen, (big, big), 0.5, dev)
+    scal = compute_scaling(a, b, ms, "fast")
+    qa, qb = prepare_operand(a, "lhs", spec), prepare_operand(b, "rhs", spec)
+    fr = fused_raw_args(a, scal.lmu, b, scal.lnu, ms, KERNEL_TILE)
+    fp = fused_parts_args(stack_parts(qa.parts, ms), qa.lscale, stack_parts(qb.parts, ms),
+                          qb.lscale, ms, KERNEL_TILE)
+    # (name, kernel, plain version, arguments, their tensors, lmu, lnu)
+    cases = (("ozmm_fused_raw", ozmm_fused_raw, ozmm_fused_raw_ref, fr, fr, fr[3], fr[7]),
+             ("ozmm_fused_parts", ozmm_fused_parts, ozmm_fused_parts_ref, fp,
+              [*fp[0], *fp[1], fp[2], fp[3]], fp[2], fp[3]))
+    for name, kern, plain, fa, ins, lmu, lnu in cases:
+        lm, ln = lmu[:, 0], lnu[0]
+        digits, want = kern(*fa, ms=ms, reconstruct="xla"), plain(*fa, ms=ms, reconstruct="xla")
+        check_equal(digits, want, f"{name} digits at {big}^3 vs plain version")
+        max_err = (digits.int() - want.int()).abs().max().item()
+        del want
+        onchip = kern(*fa, ms=ms)
+        check_equal(crt.reconstruct(digits, ms, lm, ln), onchip,
+                    f"{name} at {big}^3: C of the digits vs the on-chip epilogue")
+        ms_x = cuda_ms(lambda: kern(*fa, ms=ms, reconstruct="xla"))
+        ms_on = cuda_ms(lambda: kern(*fa, ms=ms))
+        ms_plain = cuda_ms(lambda: plain(*fa, ms=ms, reconstruct="xla"), 1)
+        n_bytes = sum(t.numel() * t.element_size() for t in ins) + 2 * ms.n * big * big
+        rows.append(k_row(name, spec + " digits", (big, big, big), launches, max_err, ms_x,
+                          ms_plain, n_bytes, products, None, onchip_ms=ms_on))
+        print(f"  {spec} {name} reconstruct='xla' {big}^3: digits == plain, C of the digits "
+              f"== on-chip C (bitwise); {ms_x:.2f} ms (on-chip epilogue {ms_on:.2f} ms), plain "
+              f"{ms_plain:.2f} ms, bound {rows[-1]['bound_ms']:.2f} ms", flush=True)
+        del digits, onchip
+    check_equal(ops.ozmm_pallas_fused(a, b, family=ms.family, mode="fast", reconstruct="xla"),
+                ozmm(a, b, spec), f"ozmm_pallas_fused reconstruct='xla' at {big}^3 vs ozmm")
+    print(f"  ozmm_pallas_fused(reconstruct='xla') == ozmm (on-chip) at {big}^3 (bitwise)",
+          flush=True)
+    del a, b, qa, qb, fr, fp, cases
+    torch.cuda.empty_cache()
+    return rows
+
+
 def unfused_phase(args, dev, gen) -> list[dict]:
     """Phase 8 (module docstring): the phase-split pipeline's kernels K3-K6
     against their plain versions and oracles, the '+pallas+unfused' path,
@@ -568,7 +763,7 @@ def unfused_phase(args, dev, gen) -> list[dict]:
     from repro_torch.core import crt, quantize, scaling
     from repro_torch.core.plan import pow2_tables
     from repro_torch.kernels import pipeline
-    from repro_torch.kernels.fp8_gemm import ROUTES, reset_counts, residue_gemm_route
+    from repro_torch.kernels.fp8_gemm import ROUTES, max_k, reset_counts, residue_gemm_route
     from repro_torch.kernels.quant_residues import kernel as k6_module
     from repro_torch.kernels.quant_residues import ops as qr_ops
     from repro_torch.precision import parse_policy
@@ -746,6 +941,21 @@ def unfused_phase(args, dev, gen) -> list[dict]:
               f"K3 at k = 65536 on the {route} route: not the exact int64 product")
     print(f"  K3 k = 65536 (+-16, +16 then +1, max |sum| {int(want.abs().max())}): exact on both "
           "routes", flush=True)
+    del a8, b8, bt8
+
+    # -- K4's exactness at its limit k = 2^17, both routes ------------------
+    k4_limit = max_k(torch.int8)
+    a8, b8, want = probe_operands(k4_limit, dev, big=127)
+    bt8 = b8.t().contiguous()
+    for route, x in (("wgmma", a8), ("mma_sync", misaligned(a8))):
+        before = kn.int8_gemm.launches_by_route[route]
+        got = kn.int8_gemm(x, bt8.t())
+        check(kn.int8_gemm.launches_by_route[route] == before + 1,
+              f"K4 at k = 2^17 did not take the {route} route")
+        check(torch.equal(got.cpu().long(), want),
+              f"K4 at k = 2^17 on the {route} route: not the exact int64 product")
+    print(f"  K4 k = {k4_limit} (+-127, +127 then +1, max |sum| {int(want.abs().max())} "
+          f"< 2^31): exact on both routes", flush=True)
     del a8, b8, bt8
 
     # -- the main path: ozmm(..., "+pallas+unfused") for the four policies --
@@ -2072,9 +2282,9 @@ def families_phase(args, dev) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 12: training (repro_torch.train, optim, checkpoint, data, runtime)
 
-#: (a)/(b): starcoder2-15b at its published widths (every contraction under
-#: K1's 2^16; vocab 49,152), depth cut to 2 of 40 layers: memory and the
-#: run's time, while two layers keep remat and a layer-to-layer gradient.
+#: (a)/(b): starcoder2-15b at its published widths (vocab 49,152), depth cut
+#: to 2 of 40 layers: memory and the run's time, while two layers keep remat
+#: and a layer-to-layer gradient.
 TRAIN_ARCH = "starcoder2-15b"
 TRAIN_LAYERS = 2
 TRAIN_POLICY = "ozaki2-fp8/fast"
@@ -2098,6 +2308,19 @@ TRAIN_FAMILIES = ("qwen2-7b", "starcoder2-15b", "moonshot-v1-16b-a3b", "deepseek
                   "gemma2-27b")
 TRAIN_SMOKE_POLICIES = ("ozaki2-fp8/fast", "ozaki2-fp8/accurate+unfused")
 TRAIN_INT8_POLICY = "ozaki2-int8/fast+unfused"
+#: (d): qwen2-7b at its published widths (vocab 152,064: lm_head's input
+#: gradient contracts past K1's 2^16 chunk, in three chunks), depth cut to 2
+#: of 28 layers: the state (f32 parameters, gradients and AdamW moments of
+#: 1.56 G parameters, ~31 GB) beside K1's transients at lm_head (~44 GB:
+#: both operands in f64, their raw frames and 25 GB of parts) leaves no room
+#: for a third; 2 steps of (a)'s microbatches.
+LONG_TRAIN_ARCH = "qwen2-7b"
+LONG_TRAIN_LAYERS = 2
+LONG_TRAIN_STEPS = 2
+#: The plain version of K1's row at lm_head's input gradient runs on column
+#: blocks of B of at most this many elements (its residues for every
+#: modulus of a larger B would not fit beside the run).
+PLAIN_B_ELEMS = 1 << 28
 
 
 def train_gemms(cfg) -> tuple[int, int, int]:
@@ -2222,7 +2445,8 @@ def k1_train_row(a, b, launches: int) -> dict:
     """The kernels line's row of K1 at the training path's vocabulary
     contraction (lm_head's input gradient, dlogits @ W^T): bitwise against
     its plain version, timed (median of 5 after a warm-up; the plain version
-    3) beside its bound and cuBLAS DGEMM on the same f64 inputs."""
+    median of K1_REPS, each a pass over B's column blocks of at most
+    PLAIN_B_ELEMS) beside its bound and cuBLAS DGEMM on the same f64 inputs."""
     import torch
 
     from repro_torch.core.scaling import compute_scaling
@@ -2236,11 +2460,17 @@ def k1_train_row(a, b, launches: int) -> dict:
     fa = fused_raw_args(a, scal.lmu, b, scal.lnu, ms, KERNEL_TILE)
     counted = ozmm_fused_raw.launches
     got = ozmm_fused_raw(*fa, ms=ms)
-    plain = ozmm_fused_raw_ref(*fa, ms=ms)
-    max_err = (got - plain).abs().max().item()
-    del got, plain
+    n_pad = fa[4].shape[1]
+    cols = max(KERNEL_TILE[1], min(n_pad, PLAIN_B_ELEMS // k) // KERNEL_TILE[1] * KERNEL_TILE[1])
+
+    def plain():  # on B's column blocks, one block when B fits
+        return torch.cat([ozmm_fused_raw_ref(*fa[:4], *(t[:, c0:c0 + cols] for t in fa[4:8]),
+                                             fa[8], ms=ms) for c0 in range(0, n_pad, cols)], 1)
+
+    max_err = (got - plain()).abs().max().item()
+    ms_plain = cuda_ms(plain, K1_REPS)
+    del got
     ms_k1 = cuda_ms(lambda: ozmm_fused_raw(*fa, ms=ms))
-    ms_plain = cuda_ms(lambda: ozmm_fused_raw_ref(*fa, ms=ms), K1_REPS)
     ozmm_fused_raw.launches = counted
     ms_dgemm = cuda_ms(lambda: torch.matmul(a, b))
     n_bytes = sum(t.numel() * t.element_size() for t in fa) + m * n * 8
@@ -2260,9 +2490,12 @@ def k1_train_row(a, b, launches: int) -> dict:
     return row
 
 
-def train_full_width(args, dev) -> dict:
-    """Phase 12 (a) (module docstring). Returns the run's numbers, the K1
-    row, and the trained parameters and config for (b)."""
+def train_full_width(args, dev, arch: str = TRAIN_ARCH, layers: int = TRAIN_LAYERS,
+                     steps: int = TRAIN_STEPS, native: bool = True) -> dict:
+    """Phase 12 (a) and (d) (module docstring): ``arch`` at its published
+    widths, ``layers`` deep, ``steps`` steps; beside the same run under
+    native when ``native``. Returns the run's numbers, the K1 row, and the
+    trained parameters and config (for (b))."""
     import dataclasses
     import gc
 
@@ -2283,21 +2516,23 @@ def train_full_width(args, dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    full = get_config(TRAIN_ARCH, "full")
-    cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS, gemm=TRAIN_POLICY)
+    full = get_config(arch, "full")
+    cfg = dataclasses.replace(full, num_layers=layers, gemm=TRAIN_POLICY)
     data = DataConfig(seed=args.seed, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                       vocab_size=cfg.vocab_size)
-    tcfg = TrainerConfig(steps=TRAIN_STEPS, microbatches=TRAIN_MICROBATCHES, log_every=1,
+    tcfg = TrainerConfig(steps=steps, microbatches=TRAIN_MICROBATCHES, log_every=1,
                          seed=args.seed)
     fwd, recompute, bwd = train_gemms(cfg)
     per_mb = fwd + recompute + bwd
-    want_k1 = TRAIN_STEPS * TRAIN_MICROBATCHES * per_mb
+    want_k1 = steps * TRAIN_MICROBATCHES * per_mb
     rows = TRAIN_BATCH // TRAIN_MICROBATCHES * TRAIN_SEQ
     print(f"  {cfg.name}: d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
-          f"{cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.act}, plain MLP), QKV bias, vocab "
-          f"{cfg.vocab_size}, untied lm_head, remat {cfg.remat!r}; {TRAIN_LAYERS} of "
-          f"{full.num_layers} layers; f32 parameters from the seed, {cfg.dtype} compute, "
-          f"{cfg.gemm.spec} on backend auto; Trainer: {TRAIN_STEPS} steps x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.act}, "
+          f"{'gated' if cfg.gated_mlp else 'plain'} MLP), "
+          f"{'QKV bias, ' if cfg.qkv_bias else ''}vocab {cfg.vocab_size}, "
+          f"{'tied' if cfg.tie_embeddings else 'untied'} lm_head, remat {cfg.remat!r}; "
+          f"{layers} of {full.num_layers} layers; f32 parameters from the seed, {cfg.dtype} "
+          f"compute, {cfg.gemm.spec} on backend auto; Trainer: {steps} steps x "
           f"{TRAIN_MICROBATCHES} microbatches of {rows} rows", flush=True)
 
     class Hook:
@@ -2340,12 +2575,12 @@ def train_full_width(args, dev) -> dict:
         trainer = Trainer(Model(cfg, device=dev), AdamWConfig(), data, tcfg, step_transform=hook)
         state = trainer.run(sink)
         torch.cuda.synchronize()
-        split = {k: t.seconds() * 1e3 / (TRAIN_STEPS - 1) for k, t in totals.items()}
+        split = {k: t.seconds() * 1e3 / (steps - 1) for k, t in totals.items()}
     counts = get_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses = [m["loss"] for m in sink]
     dts = [m["dt"] for m in sink]
-    check(len(sink) == TRAIN_STEPS, f"{len(sink)} steps, want {TRAIN_STEPS}")
+    check(len(sink) == steps, f"{len(sink)} steps, want {steps}")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
     after = param_slices(state.params)
     check(all(not torch.equal(after[k], v) for k, v in hook.before.items()),
@@ -2357,11 +2592,11 @@ def train_full_width(args, dev) -> dict:
     split["rest"] = step_ms - sum(split.values())
     tokens_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
     print(f"  {hook.params / 1e9:.3f} G parameters; losses {[round(x, 4) for x in losses]}; "
-          f"K1 launches {counts['K1']} = {TRAIN_STEPS} steps x {TRAIN_MICROBATCHES} x "
+          f"K1 launches {counts['K1']} = {steps} steps x {TRAIN_MICROBATCHES} x "
           f"({fwd} forward + {recompute} recomputed + {bwd} backward), prologue "
           f"{counts['K1 prologue']}, K2-K6 0 (as predicted); K1 and its prologue at "
           f"{len(k1c.shapes)} distinct input shapes == plain versions (bitwise)", flush=True)
-    print(f"  step {step_ms:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}; first step "
+    print(f"  step {step_ms:.1f} ms (median of steps 1-{steps - 1}; first step "
           f"{dts[0] * 1e3:.1f} ms with the checks), {tokens_s:.0f} tokens/s, peak "
           f"{peak:.2f} GB (the first step with its checks {hook.peak_checks:.2f}); a step by "
           f"CUDA events: " + ", ".join(
@@ -2385,6 +2620,13 @@ def train_full_width(args, dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    out = {"arch": cfg.name, "layers": layers, "params": hook.params, "losses": losses,
+           "step_ms": step_ms, "step_ms_each": [d * 1e3 for d in dts], "tokens_per_s": tokens_s,
+           "peak_gb": peak, "peak_gb_first_step": hook.peak_checks, "split_ms": split,
+           "launches": counts, "k1_shapes_checked": len(k1c.shapes)}
+    if not native:
+        return {"numbers": out, "k1_row": k1_row, "params": params, "cfg": cfg}
+
     # the yardstick: the same run under native (bf16 torch.matmul)
     native_sink = []
     native_trainer = Trainer(Model(dataclasses.replace(cfg, gemm="native"), device=dev),
@@ -2399,13 +2641,9 @@ def train_full_width(args, dev) -> dict:
     print(f"  native (bf16 torch.matmul) step {native_ms:.1f} ms, "
           f"{TRAIN_BATCH * TRAIN_SEQ / (native_ms / 1e3):.0f} tokens/s; losses "
           f"{[round(m['loss'], 4) for m in native_sink]}", flush=True)
-    out = {"arch": cfg.name, "layers": TRAIN_LAYERS, "params": hook.params, "losses": losses,
-           "step_ms": step_ms, "step_ms_each": [d * 1e3 for d in dts], "tokens_per_s": tokens_s,
-           "peak_gb": peak, "peak_gb_first_step": hook.peak_checks, "split_ms": split,
-           "launches": counts,
-           "k1_shapes_checked": len(k1c.shapes), "native_step_ms": native_ms,
-           "native_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (native_ms / 1e3),
-           "native_losses": [m["loss"] for m in native_sink]}
+    out.update({"native_step_ms": native_ms,
+                "native_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (native_ms / 1e3),
+                "native_losses": [m["loss"] for m in native_sink]})
     return {"numbers": out, "k1_row": k1_row, "params": params, "cfg": cfg}
 
 
@@ -2681,9 +2919,19 @@ def train_phase(args, dev) -> dict:
     probe = determinism_probe(dev)
     smoke = train_smoke_width(args, dev)
     resume = train_resume(args, dev)
-    return {"k1_row": full["k1_row"],
+    t0 = time.perf_counter()
+    long = train_full_width(args, dev, LONG_TRAIN_ARCH, LONG_TRAIN_LAYERS, LONG_TRAIN_STEPS,
+                            native=False)
+    del long["params"], long["cfg"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    long["numbers"]["seconds"] = time.perf_counter() - t0
+    print(f"  (d) {LONG_TRAIN_ARCH} at full width: {long['numbers']['seconds']:.1f} s",
+          flush=True)
+    return {"k1_rows": [full["k1_row"], long["k1_row"]],
             "train": {"full_width": full["numbers"], "fp64_grade": fp64, "smoke_width": smoke,
-                      "resume": resume, "determinism_probe": probe}}
+                      "resume": resume, "determinism_probe": probe,
+                      "long_vocabulary": long["numbers"]}}
 
 
 # ---------------------------------------------------------------------------
@@ -3112,6 +3360,10 @@ def main() -> int:
                 if source in ("requant_garner.cu", "quant_residues.cu") and frame:
                     check(all(int(x) == 0 for x in frame.groups()),
                           f"ptxas: {source} {entry} has a stack frame or spills: {line.strip()}")
+                # the GEMM core of K1/K2 keeps its chunked accumulators in registers
+                if entry.startswith("gemm_core_kernel") and frame:
+                    check(int(frame.group(2)) == int(frame.group(3)) == 0,
+                          f"ptxas: {source} {entry} spills: {line.strip()}")
     t0 = phase("1 card+build", t0)
 
     # ---- 2. MMA probe -----------------------------------------------------
@@ -3362,6 +3614,11 @@ def main() -> int:
     t0 = phase("6 K2", t0)
     print(json.dumps({"k2_by_policy": k2_rows}))
 
+    # ---- 6b. contractions past the core's chunk; the digit stack -----------
+    long_rows = long_k_phase(args, dev, gen, main_launches)
+    t0 = phase("6b long-k/digits", t0)
+    print(json.dumps({"long_k": long_rows}))
+
     # ---- 7. linalg / HPL on the card --------------------------------------
     hpl_rows = []
     for spec, share in HPL_POLICIES.items():
@@ -3509,9 +3766,9 @@ def main() -> int:
                    launches=next(r for r in hpl_rows
                                  if r["policy"] == "ozaki2-fp8/fast")["k2_launches"])
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
-                                  for row in (main, k2_main, *unfused_rows, serve["k2_row"],
-                                              families["k2_row"], train["k1_row"],
-                                              *dist["kernel_rows"])]}))
+                                  for row in (main, k2_main, *long_rows, *unfused_rows,
+                                              serve["k2_row"], families["k2_row"],
+                                              *train["k1_rows"], *dist["kernel_rows"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

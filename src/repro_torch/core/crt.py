@@ -36,12 +36,14 @@ def combine_residue_product(cparts, p: int, is_square: bool, s: int,
 
 def garner_digits(cs: list[torch.Tensor], ms: ModuliSet) -> torch.Tensor:
     """Balanced mixed-radix digits (radix order, even modulus first) from
-    centred residues in selection order. All int32, |values| < 2^21."""
+    centred residues in selection order. All int32, |values| < 2^21. The
+    steps reduce into [0, p) and only the digit is centred: every step is
+    linear mod p, so the digit is the one that centring each step gives."""
     digits: list[torch.Tensor] = []
     for i, pi in enumerate(ms.radix_ps):
         t = cs[ms.radix_order[i]].to(torch.int32)
         for j in range(i):
-            t = centered_mod((t - digits[j]) * int(ms.garner_inv[j, i]), pi)
+            t = torch.remainder((t - digits[j]) * int(ms.garner_inv[j, i]), pi)
         digits.append(centered_mod(t, pi))
     return torch.stack(digits)
 

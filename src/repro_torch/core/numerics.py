@@ -148,9 +148,18 @@ def matmul_exact_fp8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     allow_tf32 = matmul.allow_tf32
     matmul.allow_tf32 = False
     try:
-        return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+        return torch.matmul(_as_f32(a), _as_f32(b))
     finally:
         matmul.allow_tf32 = allow_tf32
+
+
+def _as_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as float32, exactly. An e4m3 tensor on the CPU goes through
+    float16, which holds every e4m3 value: PyTorch's CPU conversion from
+    e4m3 to float16 runs several times faster than to float32."""
+    if x.dtype == E4M3 and x.device.type == "cpu":
+        x = x.to(torch.float16)
+    return x.to(torch.float32)
 
 
 def matmul_exact_int8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

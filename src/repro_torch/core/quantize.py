@@ -35,7 +35,9 @@ def residues_all(a_int: torch.Tensor, ms: ModuliSet,
 
 
 def _f8(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.float32).to(numerics.E4M3)
+    """Integer parts |x| <= 16 as e4m3, exactly (one cast: every such
+    integer is an e4m3 value)."""
+    return x.to(numerics.E4M3)
 
 
 def split_karatsuba(r: torch.Tensor):

@@ -6,7 +6,9 @@
 //   per modulus l, the e4m3 parts of A (hi, lo, hs stacks, (N, m, k)) and of
 //   B ((N, k, n)) -> the eq. (8)/(12) products (or the single product of the
 //   int8 stacks) -> combine -> balanced Garner digits -> Kahan f64 sum ->
-//   ldexp_wide(., -(lmu_i + lnu_j)) -> C.
+//   ldexp_wide(., -(lmu_i + lnu_j)) -> C; or the int16 Garner digit stack
+//   (N, m, n) instead of C (the reference's reconstruct="xla"). Any k up to
+//   2^21 for the fp8 families, 2^16 for int8, as K1.
 //
 // The parts are those of fast-mode plans (core/plan.py, stacked by
 // kernels/common.py::stack_parts): the quantization was done once per
@@ -124,7 +126,9 @@ int transpose_parts_launch(const uint8_t* s_hi, const uint8_t* s_lo, const uint8
 // K-major parts of A ((N, m, k): a_hi, a_lo, a_hs, int8 in a_hi with a_lo =
 // a_hs = NULL) and of B ((N, n, k), transpose_parts's output), lmu (m), lnu
 // (n), an (N, m, n) int16 scratch; m, n, k multiples of (128, 128, 128), the
-// stacks 16-byte aligned. Returns the CUDA error (0 on success).
+// stacks 16-byte aligned. Given out = NULL, the scratch gets the int16
+// Garner digits (radix order) instead of C. Returns the CUDA error (0 on
+// success).
 int ozmm_fused_parts_launch(const uint8_t* a_hi, const uint8_t* a_lo, const uint8_t* a_hs,
                             const uint8_t* b_hi, const uint8_t* b_lo, const uint8_t* b_hs,
                             const int* lmu, const int* lnu, int16_t* res, double* out, int m,

@@ -7,7 +7,10 @@
 //   by the pairing exponent (lmu per row of A, lnu per column of B) and
 //   truncated -> centred residue mod p -> e4m3 parts (or int8) -> the
 //   eq. (8)/(12) products (or the single int8 product) -> combine -> balanced
-//   Garner digits -> Kahan f64 sum -> ldexp_wide -> C.
+//   Garner digits -> Kahan f64 sum -> ldexp_wide -> C; or, as the reference's
+//   reconstruct="xla", the int16 Garner digit stack (N, m, n) instead of C.
+//   Any k up to the reference's limits: 2^21 for the fp8 families, 2^16 for
+//   int8 (the core accumulates in chunks of 2^16, hopper_gemm.cuh).
 //
 // Two steps on the stream, both hand-written:
 //
@@ -305,8 +308,9 @@ int raw_parts_launch(const int* mh, const int* ml, const int* e, const int* lexp
 // Launch the GEMM core (hopper_gemm.cuh) on `stream`: C (m x n, f64) from the
 // K-major parts of A ((N, m, k): a_hi, a_lo, a_hs, int8 in a_hi with a_lo =
 // a_hs = NULL) and of B ((N, n, k), the same way), lmu (m), lnu (n), an
-// (N, m, n) int16 scratch; m, n, k multiples of (128, 128, 128). Returns the
-// CUDA error (0 on success).
+// (N, m, n) int16 scratch; m, n, k multiples of (128, 128, 128). Given
+// out = NULL, the scratch gets the int16 Garner digits (radix order)
+// instead of C. Returns the CUDA error (0 on success).
 int ozmm_fused_raw_launch(const uint8_t* a_hi, const uint8_t* a_lo, const uint8_t* a_hs,
                           const uint8_t* b_hi, const uint8_t* b_lo, const uint8_t* b_hs,
                           const int* lmu, const int* lnu, int16_t* res, double* out, int m,

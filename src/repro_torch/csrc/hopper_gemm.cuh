@@ -9,7 +9,9 @@
 //   modulus, the eq. (8) products (A1B1, A2B2, (A1+A2)(B1+B2)) of a
 //   Karatsuba modulus, or the single int8 product -> combine -> centred
 //   residue (int16, into a scratch (N, m, n)); after the last modulus,
-//   finalize (fused_common.cuh: Garner digits, Kahan f64 sum, ldexp_wide).
+//   finalize (fused_common.cuh: Garner digits, Kahan f64 sum, ldexp_wide),
+//   or, given no C (the reference's reconstruct="xla"), the Garner digits
+//   alone, int16 in radix order, written over the scratch.
 //   A square modulus never reads an hs part.
 //
 // Schedule. A cluster of two blocks per 128 x 128 output tile, each block
@@ -37,9 +39,18 @@
 // DeepSeek-V3 report, arXiv:2412.19437): fused_raw.cu's wgmma probe found a
 // chained accumulator leaving the exact sum after 16 k32 steps, once a
 // running sum of 2^17 meets small products. The f32 accumulator stays exact
-// while |sum| <= k * 2^8 <= 2^24 (MAX_K = 2^16). int8: the s8 wgmma
-// accumulates in s32 over the whole k (|sum| <= k * 2^14 < 2^31), with no
-// promotion.
+// while |sum| <= k * 2^8 <= 2^24, so a contraction past CHUNK = 2^16 runs
+// in chunks (the kernel's LONG instantiation): at each chunk's end the
+// chunk's accumulators are combined into a centred residue, which is added
+// mod p to the running residue in the scratch plane (the first chunk writes
+// it), and the accumulators start again from 0. The combine is linear mod
+// p, so the residue is the exact one at any k; each chunk's combine sees
+// what the whole k did at k <= 2^16 (square: |s*(c1 + c2) + c3| <= 67 *
+// 2^24 < 2^31), and the running residue lives in memory, not in registers
+// (a consumer thread has no registers to spare, below). The reference's int32 accumulators
+// hold the fp8 families to k <= 2^21 (kernels/fused/kernel.py::max_k).
+// int8: the s8 wgmma accumulates in s32 (|sum| <= k * 2^14 < 2^31 for
+// k <= 2^16, the int8 family's limit), with no promotion.
 //
 // Registers. A consumer thread holds 3 x 32 accumulators and 3 x 32 fresh
 // fragments. The block starts at 168 registers a thread (384 threads);
@@ -79,6 +90,7 @@ using fused::Moduli;
 constexpr int BM = 128, BN = 64, BK = 128;  // one block's tile (KERNEL_TILE: 128 x 2BN x BK)
 constexpr int CLUSTER = 2;  // blocks along n sharing (multicasting) their A tile
 constexpr int KC = 1;                       // k32 steps per fresh FP8 fragment (GEMM_KC)
+constexpr int CHUNK = 1 << 16;  // k of one chunk: a promoted f32 accumulator <= 2^16 * 2^8
 constexpr int SLOTS = 9;
 constexpr int CONSUMERS = 2;                    // warpgroups, 64 rows of the tile each
 constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
@@ -88,6 +100,8 @@ constexpr int SLOT_BYTES = A_TILE + B_TILE;        // one part of A and of B
 constexpr int SMEM_BYTES = 1024 + SLOTS * SLOT_BYTES + 2 * SLOTS * 8 + sizeof(Moduli);
 static_assert(KC == 1, "a chain of KC k32 steps must sum at most 2^13");
 static_assert(BK == TMA_BOX_K, "a k-tile is one TMA box deep");
+static_assert(CHUNK % BK == 0 && (CHUNK & (CHUNK - 1)) == 0,
+              "a chunk is a power of two of whole k-tiles");
 
 // -- the kernel ---------------------------------------------------------------
 
@@ -99,10 +113,10 @@ struct Maps {
 };
 
 struct Epilogue {
-  int16_t* res;     // (N, m, n) residue scratch
+  int16_t* res;     // (N, m, n) residue scratch; the digits when out is NULL
   const int* lmu;   // (m)
   const int* lnu;   // (n)
-  double* out;      // (m, n)
+  double* out;      // (m, n), or NULL: write the Garner digits over res
   int m, n, k;
 };
 
@@ -114,9 +128,38 @@ struct Smem {
 
 using Ring = RingOf<SLOTS>;
 
-// One modulus over the whole contraction, then its centred residues into the
-// scratch plane l.
-template <int KIND>
+// A chunk's fold: its accumulators' centred residues into the scratch plane
+// l, added mod p to the earlier chunks' there unless this is the first.
+template <int KIND, typename Acc, int NA>
+__device__ __forceinline__ void fold_chunk(const Acc (&acc)[NA][32], const Epilogue& ep, int l,
+                                           int p, int s, int row0, int col0, bool later) {
+  int16_t* plane = ep.res + static_cast<size_t>(l) * ep.m * ep.n;
+  const int wg = threadIdx.x >> 7;
+#pragma unroll
+  for (int j = 0; j < 32; j += 2) {
+    const int row = row0 + wg * 64 + frag_row(j), col = col0 + frag_col(j);
+    uint32_t* word = reinterpret_cast<uint32_t*>(plane + static_cast<size_t>(row) * ep.n + col);
+    const uint32_t before = later ? *word : 0u;
+    int c[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (KIND == KIND_INT8) {
+        c[h] = ozaki::cmod(acc[0][j + h], p);
+      } else {
+        c[h] = ozaki::combine(__float2int_rn(acc[0][j + h]), __float2int_rn(acc[1][j + h]),
+                              __float2int_rn(acc[2][j + h]), p, KIND == KIND_SQUARE, s);
+      }
+      if (later) c[h] = ozaki::cmod(c[h] + static_cast<int16_t>(before >> (16 * h)), p);
+    }
+    *word = (static_cast<uint32_t>(c[0]) & 0xFFFFu) | (static_cast<uint32_t>(c[1]) << 16);
+  }
+}
+
+// One modulus over the whole contraction, its centred residues into the
+// scratch plane l. LONG (k > CHUNK): at the end of each chunk but the last
+// the accumulators fold into the plane and start again from 0, and the
+// last chunk's fold adds to theirs.
+template <int KIND, bool LONG>
 __device__ __forceinline__ void consumer_modulus(const Smem& sm, const Epilogue& ep, int l,
                                                  int p, int s, int row0, int col0,
                                                  Ring& ring) {
@@ -181,24 +224,18 @@ __device__ __forceinline__ void consumer_modulus(const Smem& sm, const Epilogue&
         for (int c = 0; c < CLUSTER; ++c) mbar_arrive_cluster(sm.empty + 8 * slot[q], c);
       }
     }
-  }
-  int16_t* plane = ep.res + static_cast<size_t>(l) * ep.m * ep.n;
+    if constexpr (LONG) {
+      if (((k0 + BK) & (CHUNK - 1)) == 0 && k0 + BK < ep.k) {  // a chunk's last k-tile
+        fold_chunk<KIND>(acc, ep, l, p, s, row0, col0, k0 >= CHUNK);
 #pragma unroll
-  for (int j = 0; j < 32; j += 2) {
-    int c[2];
+        for (int q = 0; q < NA; ++q) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if constexpr (INT8) {
-        c[h] = ozaki::cmod(acc[0][j + h], p);
-      } else {
-        c[h] = ozaki::combine(__float2int_rn(acc[0][j + h]), __float2int_rn(acc[1][j + h]),
-                              __float2int_rn(acc[2][j + h]), p, KIND == KIND_SQUARE, s);
+          for (int j = 0; j < 32; ++j) acc[q][j] = 0;
+        }
       }
     }
-    const int row = row0 + wg * 64 + frag_row(j), col = col0 + frag_col(j);
-    *reinterpret_cast<uint32_t*>(plane + static_cast<size_t>(row) * ep.n + col) =
-        (static_cast<uint32_t>(c[0]) & 0xFFFFu) | (static_cast<uint32_t>(c[1]) << 16);
   }
+  fold_chunk<KIND>(acc, ep, l, p, s, row0, col0, LONG);
 }
 
 // Index in C of the first of the adjacent pair (j, j + 1) of a consumer
@@ -218,6 +255,12 @@ __device__ __forceinline__ void residue_words(const Moduli& M, const int16_t* re
     w[d] = *reinterpret_cast<const uint32_t*>(res + i + M.radix_order[d] * plane);
 }
 
+// DIGITS: write the Garner digits over the scratch instead of C; LONG: the
+// contraction passes one chunk. Each a separate instantiation, so that the
+// f64 epilogue's registers and the single chunk's loop are as without them
+// (on the H100 a runtime branch into the digits spilled, and the chunked
+// loop cost a single chunk ~2.5% at 8192^3).
+template <bool DIGITS, bool LONG>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
 gemm_core_kernel(const __grid_constant__ Maps maps, Epilogue ep,
                  const __grid_constant__ Moduli mod) {
@@ -288,19 +331,19 @@ gemm_core_kernel(const __grid_constant__ Maps maps, Epilogue ep,
       const int p = M.ps[l], s = M.split_s[l];
       switch (M.kind[l]) {
         case KIND_SQUARE:
-          consumer_modulus<KIND_SQUARE>(sm, ep, l, p, s, row0, col0, ring);
+          consumer_modulus<KIND_SQUARE, LONG>(sm, ep, l, p, s, row0, col0, ring);
           break;
         case KIND_KARATSUBA:
-          consumer_modulus<KIND_KARATSUBA>(sm, ep, l, p, s, row0, col0, ring);
+          consumer_modulus<KIND_KARATSUBA, LONG>(sm, ep, l, p, s, row0, col0, ring);
           break;
         default:
-          consumer_modulus<KIND_INT8>(sm, ep, l, p, s, row0, col0, ring);
+          consumer_modulus<KIND_INT8, LONG>(sm, ep, l, p, s, row0, col0, ring);
       }
     }
     // each thread finalizes the elements whose residues it wrote, four at
     // a time (two pairs of adjacent columns, 8 rows apart): the residue
     // words of the next two pairs are loaded while these four Garner chains
-    // run, interleaved
+    // run, interleaved; without C, the digits go over the residues
     const size_t plane = static_cast<size_t>(ep.m) * ep.n;
     const int wg = threadIdx.x >> 7;
     const int wrow0 = row0 + wg * 64;
@@ -325,13 +368,32 @@ gemm_core_kernel(const __grid_constant__ Maps maps, Epilogue ep,
         e[2 * h] = -(ep.lmu[row] + ep.lnu[col]);
         e[2 * h + 1] = -(ep.lmu[row] + ep.lnu[col + 1]);
       }
-      double v[4];
-      fused::finalize<4>(M, t, e, v);
+      if constexpr (!DIGITS) {
+        double v[4];
+        fused::finalize<4>(M, t, e, v);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = wrow0 + frag_row(j + 2 * h), col = col0 + frag_col(j + 2 * h);
-        *reinterpret_cast<double2*>(ep.out + static_cast<size_t>(row) * ep.n + col) =
-            make_double2(v[2 * h], v[2 * h + 1]);
+        for (int h = 0; h < 2; ++h) {
+          const int row = wrow0 + frag_row(j + 2 * h), col = col0 + frag_col(j + 2 * h);
+          *reinterpret_cast<double2*>(ep.out + static_cast<size_t>(row) * ep.n + col) =
+              make_double2(v[2 * h], v[2 * h + 1]);
+        }
+      } else {
+        // the digits (K5's digits mode), radix order, over these elements'
+        // residues, which this thread alone has read, and read already
+        float dg[4][MAXN];
+        fused::garner<4>(M, t, dg);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const size_t i = pair_index(ep, wrow0, col0, j + 2 * h);
+#pragma unroll
+          for (int d = 0; d < MAXN; ++d) {
+            if (d < n_mod) {
+              *reinterpret_cast<uint32_t*>(ep.res + i + d * plane) =
+                  (static_cast<uint32_t>(ozaki::small_to_int(dg[2 * h][d])) & 0xFFFFu) |
+                  (static_cast<uint32_t>(ozaki::small_to_int(dg[2 * h + 1][d])) << 16);
+            }
+          }
+        }
       }
     }
   }
@@ -341,8 +403,9 @@ gemm_core_kernel(const __grid_constant__ Maps maps, Epilogue ep,
 
 // Launch the core on `stream`: parts a[q] (N, m, k) and b[q] (N, n, k),
 // K-major, 16-byte aligned (a[1..2], b[1..2] NULL for int8; hs planes of
-// square moduli never read); res an (N, m, n) int16 scratch; m, n, k
-// multiples of (BM, BN, BK). Returns the CUDA error (0 on success).
+// square moduli never read); res an (N, m, n) int16 scratch, which gets the
+// Garner digits (radix order) where out is NULL; m, n, k multiples of (BM,
+// BN, BK). Returns the CUDA error (0 on success).
 inline int gemm_core_launch(const uint8_t* const a[3], const uint8_t* const b[3], const int* lmu,
                             const int* lnu, int16_t* res, double* out, int m, int n, int k,
                             const Moduli& mod, int device, cudaStream_t stream) {
@@ -362,12 +425,14 @@ inline int gemm_core_launch(const uint8_t* const a[3], const uint8_t* const b[3]
     }
     const long long blocks = static_cast<long long>(m / BM) * (n / BN);
     if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        gemm_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    const bool long_k = k > CHUNK;
+    auto kern = out ? (long_k ? gemm_core_kernel<false, true> : gemm_core_kernel<false, false>)
+                    : (long_k ? gemm_core_kernel<true, true> : gemm_core_kernel<true, false>);
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return err;
     const Epilogue ep{res, lmu, lnu, out, m, n, k};
-    gemm_core_kernel<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES, stream>>>(maps, ep,
-                                                                                      mod);
+    kern<<<static_cast<unsigned>(blocks), THREADS, SMEM_BYTES, stream>>>(maps, ep, mod);
     return cudaGetLastError();
   });
 }

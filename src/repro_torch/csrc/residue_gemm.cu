@@ -40,7 +40,8 @@
 // fragment is added with __fadd_rn into the f32 accumulator, exact while
 // |sum| <= k * 2^8 <= 2^24 (k <= 2^16, the wrapper's limit); C = that sum.
 // int8 (K4): the s8 products accumulate in s32 over the whole k (|sum| <=
-// k * 2^14 < 2^31), with no promotion.
+// k * 127^2 < 2^31 for k <= 2^17, the wrapper's limit and the reference's),
+// with no promotion.
 //
 // Overlap (K3). Each k32 step costs the consumer warpgroup one wgmma and
 // 64 FP32 adds a thread (mnk/32 = 1.7e10 adds for one 8192^3 product, as

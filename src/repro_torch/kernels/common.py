@@ -10,20 +10,18 @@ RECONSTRUCT_MODES = ("onchip", "xla")
 
 
 def resolve_reconstruct(reconstruct: str | None) -> str:
-    """Where the fused kernel performs the final f64 digit combine.
+    """Where the fused kernels perform the final f64 digit combine.
 
-    The H100 has native f64, so the on-chip epilogue (``"onchip"``: the
-    kernel writes the f64 tile) is the default and the only mode ported.
-    ``"xla"`` (the int16 digit stack plus a separate combine) exists in the
-    reference only because TPU Mosaic lacks f64; it is ROADMAP item B6's
-    remainder here.
+    ``"onchip"``: the kernel writes the f64 product; the default here, since
+    the H100 has native f64 (the reference defaults to ``"xla"`` on a TPU,
+    whose Mosaic lacks f64). ``"xla"``: the kernel writes the int16 Garner
+    digit stack (N, m, n) and ``crt.reconstruct`` combines it outside, as
+    the reference's ``_epilogue``; both give the same bits.
     """
-    if reconstruct is None or reconstruct == "onchip":
+    if reconstruct is None:
         return "onchip"
-    if reconstruct == "xla":
-        raise NotImplementedError(
-            "reconstruct='xla' (the int16 Garner digit stack) is not ported; "
-            "the on-chip f64 epilogue is the port's only mode (ROADMAP B6)")
+    if reconstruct in RECONSTRUCT_MODES:
+        return reconstruct
     raise ValueError(f"reconstruct must be one of {RECONSTRUCT_MODES} or None, "
                      f"got {reconstruct!r}")
 

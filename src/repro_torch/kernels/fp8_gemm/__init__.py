@@ -1,5 +1,5 @@
-from .kernel import (MAX_K, ROUTES, fp8_gemm, fp8_gemm_plain, reset_counts, residue_gemm,
+from .kernel import (ROUTES, fp8_gemm, fp8_gemm_plain, max_k, reset_counts, residue_gemm,
                      residue_gemm_route)
 
-__all__ = ["MAX_K", "ROUTES", "fp8_gemm", "fp8_gemm_plain", "reset_counts", "residue_gemm",
+__all__ = ["ROUTES", "fp8_gemm", "fp8_gemm_plain", "max_k", "reset_counts", "residue_gemm",
            "residue_gemm_route"]

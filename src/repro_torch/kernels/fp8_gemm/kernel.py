@@ -35,9 +35,16 @@ from repro_torch.core import numerics
 
 from ..launch import bind, check_tensors, raise_on_error, stream
 
-#: Largest contraction kept exact: the FP8 sum reaches k*2^8 and must stay
-#: within f32's 2^24 (fused/kernel.py::MAX_K guards the same).
-MAX_K = 2 ** 16
+_MAX_K = 2 ** 16
+_MAX_K_INT8 = 2 ** 17
+
+
+def max_k(in_dtype: torch.dtype) -> int:
+    """The largest contraction a residue GEMM keeps exact for operands of
+    ``in_dtype``, the reference's for each type: the FP8 sum reaches k*2^8
+    and must stay within f32's 2^24 (K3's output is that f32 sum); the int8
+    sum of entries |x| <= 127 reaches k*127^2 < 2^31 (K4)."""
+    return _MAX_K_INT8 if in_dtype == torch.int8 else _MAX_K
 
 
 def fp8_gemm_plain(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None):
@@ -88,8 +95,9 @@ def residue_gemm(kernel, plain, a, b, out, in_dtype: torch.dtype, out_dtype: tor
     if out is not None:
         named.append(("out", out, out_dtype, (m, n)))
     dev = check_tensors(name, named)
-    if k > MAX_K:
-        raise ValueError(f"{name}: k = {k} exceeds {MAX_K}, beyond which the "
+    limit = max_k(in_dtype)
+    if k > limit:
+        raise ValueError(f"{name}: k = {k} exceeds {limit}, beyond which the "
                          "residue products are not kept exact")
     if dev.type == "cpu":
         return plain(a, b, out)

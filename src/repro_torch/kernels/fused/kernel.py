@@ -9,7 +9,9 @@ x = (mh*2^26 + ml) * 2^e (``ops.decompose_raw``), the pairing exponents
 lmu (m, 1) / lnu (1, n) and the 2^e-mod-p tables, and returns the f64
 product: residues, e4m3 split (or int8), the eq. (8)/(12) products (or the
 single int8 product), combine, balanced Garner digits, Kahan f64 sum and
-``ldexp_wide``. On the card that is two launches of the residue prologue
+``ldexp_wide`` (or, with ``reconstruct="xla"``, the int16 Garner digit
+stack (N, m, n), as the reference's). On the card that is two launches of
+the residue prologue
 (``raw_parts``: each operand's parts once, K-major) and one of the GEMM
 core (``gemm_core``, ``csrc/hopper_gemm.cuh``). ``ozmm_fused_parts`` takes
 the residue parts of two fast-mode plans instead, stacked by
@@ -35,7 +37,7 @@ from repro_torch.core import crt, numerics, quantize
 from repro_torch.core.moduli import POW2_TABLE_LEN, ModuliSet
 from repro_torch.core.plan import residue_products
 
-from ..common import stack_parts
+from ..common import resolve_reconstruct, stack_parts
 from ..launch import (MAX_MODULI, MODULI_TAIL, bind, check_tensors, moduli_tail,
                       raise_on_error, stream)
 
@@ -45,48 +47,105 @@ MANT_SPLIT = 26  # raw frame: mant = mh * 2^26 + ml (ops.decompose_raw)
 #: blocks per 128 x 128 output tile (128 x 64 each), 128-deep k-tiles;
 #: operands arrive padded to it.
 KERNEL_TILE = (128, 128, 128)
-#: Largest contraction the core keeps exact: each FP8 product's f32
-#: accumulator reaches k*2^8 (exact to 2^24), the square-modulus combine
-#: 67*k*2^8 and the int8 s32 accumulator k*2^14, both < 2^31.
-MAX_K = 2 ** 16
+#: Contraction of one chunk of the core's accumulation (``hopper_gemm.cuh``
+#: CHUNK): each FP8 product's f32 accumulator reaches K_CHUNK*2^8 = 2^24,
+#: exact, and the square-modulus combine of a chunk 67*2^24 < 2^31; each
+#: chunk's centred residue is added mod p to the earlier chunks'.
+K_CHUNK = 2 ** 16
+#: Largest contraction of the fp8 families, the reference's (its int32
+#: accumulators reach k*2^9 < 2^31), and of int8 (the s32 accumulator
+#: k*2^14 < 2^31, in one chunk).
+_MAX_K = 2 ** 21
+_MAX_K_INT8 = 2 ** 16
+
+
+def max_k(ms: ModuliSet) -> int:
+    """The largest contraction K1/K2 take for ``ms``'s family."""
+    return _MAX_K_INT8 if ms.family == "int8" else _MAX_K
+
+
+def check_k(kernel: str, k: int, ms: ModuliSet) -> None:
+    """Raise unless ``kernel`` keeps a contraction of ``k`` exact for ``ms``."""
+    if k > max_k(ms):
+        raise ValueError(f"{kernel}: k = {k} exceeds {max_k(ms)} ({ms.family}), beyond "
+                         "which the products' accumulators are not exact")
 
 
 # ---------------------------------------------------------------------------
 # Plain version
 # ---------------------------------------------------------------------------
 
-def _residue_tile(mh, ml, sc, p: int, pw):
-    """Centred residue mod ``p`` of trunc(2^sc * (mh*2^26 + ml)), int32.
-    Negative ``sc`` truncates by shifts of the magnitudes (the sign is
-    applied afterwards), the high-limb shift clipped to 31; positive ``sc``
-    multiplies by 2^sc mod p from the table, indices clipped to the table."""
+def _frame_shifts(mh, ml, sc, table_len: int) -> tuple:
+    """The part of ``_residue_tile`` that no modulus changes: the sign, the
+    magnitudes truncated by shifts for negative ``sc`` (the high-limb shift
+    clipped to 31), and the 2^e-mod-p table indices for positive ``sc``,
+    clipped to the table (int32: ``_lookup`` takes them)."""
     amh, aml = mh.abs(), ml.abs()
     sg = torch.where(mh != 0, torch.sign(mh), torch.sign(ml))
     t = torch.clamp(-sc, min=0)
     tl = torch.clamp(t, max=MANT_SPLIT)
     th = torch.clamp(t - MANT_SPLIT, 0, 31)
-    mh_sh = amh >> th
-    ml_sh = aml >> tl
     sp = torch.clamp(sc, min=0)
-    hi_cap = pw.shape[0] - 1
-    idx_h = torch.clamp(MANT_SPLIT - tl + sp, 0, hi_cap).long()
-    idx_l = torch.clamp(sp, 0, hi_cap).long()
-    r = torch.remainder(torch.remainder(mh_sh, p) * pw[idx_h]
-                        + torch.remainder(ml_sh, p) * pw[idx_l], p)
+    hi_cap = table_len - 1
+    return (sg, amh >> th, aml >> tl, torch.clamp(MANT_SPLIT - tl + sp, 0, hi_cap),
+            torch.clamp(sp, 0, hi_cap))
+
+
+def _lookup(pw, idx):
+    """``pw[idx]`` as one ``index_select`` over the flattened indices: the
+    same values, several times faster than advanced indexing on a CPU."""
+    return torch.index_select(pw, 0, idx.reshape(-1)).view(idx.shape)
+
+
+#: Elements of one block of the plain versions' elementwise work on a CPU:
+#: each of its hundreds of passes (residues, splits, the combine, the Garner
+#: steps, the Kahan sum) then stays in cache, several times faster than
+#: passes over a whole large operand or C.
+CPU_BLOCK = 1 << 18
+
+
+def _blocks(rows: int, cols: int, device) -> list[slice]:
+    """Slices of the rows of a (rows, cols) elementwise computation: blocks
+    of at most CPU_BLOCK elements on a CPU, one block on the card."""
+    step = max(1, CPU_BLOCK // max(cols, 1)) if device.type == "cpu" else max(rows, 1)
+    return [slice(r0, r0 + step) for r0 in range(0, max(rows, 1), step)]
+
+
+def _residue_of(shifts: tuple, p: int, pw):
+    """Centred residue mod ``p`` from ``_frame_shifts``, int32: each limb
+    mod p times its power of two mod p from the table, the sign last."""
+    sg, mh_sh, ml_sh, idx_h, idx_l = shifts
+    r = torch.remainder(torch.remainder(mh_sh, p) * _lookup(pw, idx_h)
+                        + torch.remainder(ml_sh, p) * _lookup(pw, idx_l), p)
     return numerics.centered_mod(sg * r, p)
 
 
+def _residue_tile(mh, ml, sc, p: int, pw):
+    """Centred residue mod ``p`` of trunc(2^sc * (mh*2^26 + ml)), int32.
+    Negative ``sc`` truncates by shifts of the magnitudes (the sign is
+    applied afterwards), the high-limb shift clipped to 31; positive ``sc``
+    multiplies by 2^sc mod p from the table, indices clipped to the table."""
+    return _residue_of(_frame_shifts(mh, ml, sc, pw.shape[0]), p, pw)
+
+
+def _residues(mh, ml, sc, tbl, ms: ModuliSet) -> list:
+    """``_residue_tile`` for every modulus of ``ms``, the shifts made once."""
+    shifts = _frame_shifts(mh, ml, sc, tbl.shape[1])
+    return [_residue_of(shifts, p, tbl[l]) for l, p in enumerate(ms.ps)]
+
+
 def ozmm_fused_raw_ref(mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl, *,
-                       ms: ModuliSet) -> torch.Tensor:
+                       ms: ModuliSet, reconstruct: str = "onchip") -> torch.Tensor:
     """Plain PyTorch version of ``ozmm_fused_raw`` on whole matrices, on the
     inputs' device: the kernel's residues from the raw frames, then the core
     route's split, products (f32 or f64 matmuls of the integer-valued parts,
-    exact), combine, Garner digits and Kahan sum, so the plain version
-    equals the core route by construction."""
+    exact, in the kernel's chunks of k), combine, Garner digits and Kahan
+    sum, so up to K_CHUNK the plain version equals the core route by
+    construction."""
     ozmm_fused_raw_ref.calls += 1
     return parts_product_plain(raw_split_parts(mh_a, ml_a, e_a + lmu, tbl, ms=ms),
                                raw_split_parts(mh_b, ml_b, e_b + lnu, tbl, ms=ms), lmu, lnu,
-                               ms=ms)
+                               ms=ms, reconstruct=reconstruct)
 
 
 ozmm_fused_raw_ref.calls = 0
@@ -95,18 +154,56 @@ ozmm_fused_raw_ref.calls = 0
 def raw_split_parts(mh, ml, sc, tbl, *, ms: ModuliSet) -> tuple:
     """The core route's per-modulus parts (``quantize.split_residues``) of
     one operand from its raw frames under the exponents ``sc`` (e + lexp):
-    the plain versions' residues, split."""
-    return quantize.split_residues(
-        [_residue_tile(mh, ml, sc, p, tbl[l]) for l, p in enumerate(ms.ps)], ms)
+    the plain versions' residues, split (elementwise: in ``_blocks`` of
+    rows)."""
+    blocks = [quantize.split_residues(_residues(mh[r], ml[r], sc[r], tbl, ms), ms)
+              for r in _blocks(*mh.shape, mh.device)]
+    if len(blocks) == 1:
+        return blocks[0]
+    return tuple(tuple(torch.cat(planes) for planes in zip(*parts)) for parts in zip(*blocks))
 
 
-def parts_product_plain(pa, pb, lmu, lnu, *, ms: ModuliSet) -> torch.Tensor:
+def chunked_residue_products(pa, pb, ms: ModuliSet) -> list[torch.Tensor]:
+    """The core's centred residue products C'_l from both operands'
+    per-modulus parts (A's (m, k), B's (k, n)), as the kernel accumulates
+    them: ``core.plan.residue_products`` on each chunk of K_CHUNK of the
+    contraction, each chunk's residues added mod p to the earlier chunks'.
+    Exact at any k (the combine is linear mod p), where one f32 product
+    over a whole k past K_CHUNK is not; at k <= K_CHUNK it is
+    ``residue_products`` itself. On a CPU the chunks are shorter, of at most
+    CPU_BLOCK elements of either operand, so that the e4m3 casts and their
+    products stay in cache: the same exact sum."""
+    (m, k), n = pa[0][0].shape, pb[0][0].shape[1]
+    step = K_CHUNK
+    if pa[0][0].device.type == "cpu":
+        step = min(step, max(1, CPU_BLOCK // max(m, n, 1)))
+    cs = None
+    for k0 in range(0, k, step):
+        ks = slice(k0, k0 + step)
+        part = residue_products([tuple(x[:, ks] for x in ap) for ap in pa],
+                                [tuple(x[ks] for x in bp) for bp in pb], ms)
+        cs = part if cs is None else [numerics.centered_mod(c + d, p)
+                                      for c, d, p in zip(cs, part, ms.ps)]
+    return cs
+
+
+def parts_product_plain(pa, pb, lmu, lnu, *, ms: ModuliSet,
+                        reconstruct: str = "onchip") -> torch.Tensor:
     """The plain versions' GEMM from both operands' per-modulus parts: the
-    products (exact matmuls of the integer-valued parts), Garner digits and
-    Kahan sum under lmu (m, 1) and lnu (1, n). Output rows and columns are
-    independent, so blocks of A's rows and B's columns give blocks of C."""
-    cs = residue_products(pa, pb, ms)
-    return crt.reconstruct(crt.garner_digits(cs, ms), ms, lmu[:, 0], lnu[0])
+    products (``chunked_residue_products``), Garner digits and Kahan sum
+    under lmu (m, 1) and lnu (1, n); with ``reconstruct="xla"`` the digits,
+    int16 (N, m, n). Output rows and columns are independent, so blocks of
+    A's rows and B's columns give blocks of C: it runs on ``_blocks`` of
+    C's columns."""
+    a0 = pa[0][0]
+    xla = resolve_reconstruct(reconstruct) == "xla"
+    out = []
+    for cs in _blocks(pb[0][0].shape[1], a0.shape[0], a0.device):
+        digits = crt.garner_digits(
+            chunked_residue_products(pa, [tuple(x[:, cs] for x in bp) for bp in pb], ms), ms)
+        out.append(digits.to(torch.int16) if xla else
+                   crt.reconstruct(digits, ms, lmu[:, 0], lnu[0, cs]))
+    return out[0] if len(out) == 1 else torch.cat(out, -1)
 
 
 def _unstack(stacks, ms: ModuliSet) -> list[tuple]:
@@ -119,13 +216,15 @@ def _unstack(stacks, ms: ModuliSet) -> list[tuple]:
             for l, sq in enumerate(ms.is_square)]
 
 
-def ozmm_fused_parts_ref(sa, sb, lmu, lnu, *, ms: ModuliSet) -> torch.Tensor:
+def ozmm_fused_parts_ref(sa, sb, lmu, lnu, *, ms: ModuliSet,
+                         reconstruct: str = "onchip") -> torch.Tensor:
     """Plain PyTorch version of ``ozmm_fused_parts`` on whole matrices, on the
-    inputs' device: the core route's products over the unstacked parts,
-    combine, Garner digits and Kahan sum, so it equals ``ozmm_prepared`` by
-    construction."""
+    inputs' device: the core route's products over the unstacked parts (in
+    the kernel's chunks of k), combine, Garner digits and Kahan sum, so up to
+    K_CHUNK it equals ``ozmm_prepared`` by construction."""
     ozmm_fused_parts_ref.calls += 1
-    return parts_product_plain(_unstack(sa, ms), _unstack(sb, ms), lmu, lnu, ms=ms)
+    return parts_product_plain(_unstack(sa, ms), _unstack(sb, ms), lmu, lnu, ms=ms,
+                               reconstruct=reconstruct)
 
 
 ozmm_fused_parts_ref.calls = 0
@@ -140,7 +239,7 @@ def raw_parts_plain(mh, ml, e, lexp, tbl, *, ms: ModuliSet, axis: int):
     square moduli (the kernel leaves those planes unwritten), or one int8
     stack."""
     raw_parts_plain.calls += 1
-    rs = [_residue_tile(mh, ml, e + lexp, p, tbl[l]) for l, p in enumerate(ms.ps)]
+    rs = _residues(mh, ml, e + lexp, tbl, ms)
     if axis == 1:
         rs = [r.t().contiguous() for r in rs]
     return stack_parts(quantize.split_residues(rs, ms), ms)
@@ -223,9 +322,7 @@ def _check_inputs(kernel: str, named, m: int, n: int, k: int,
     if any(d % b for d, b in zip((m, n, k), KERNEL_TILE)):
         raise ValueError(f"{kernel}: (m, n, k) = {(m, n, k)} must be "
                          f"multiples of the kernel tile {KERNEL_TILE} (ops pads)")
-    if k > MAX_K:
-        raise ValueError(f"{kernel}: k = {k} exceeds {MAX_K}, beyond "
-                         "which the products' accumulators are not exact")
+    check_k(kernel, k, ms)
     if ms.n > MAX_MODULI:
         raise ValueError(f"{kernel}: {ms.n} moduli exceed the {MAX_MODULI} of the "
                          "kernels' moduli parameter block")
@@ -291,29 +388,36 @@ def transpose_parts(sb, *, ms: ModuliSet):
 transpose_parts.launches = 0
 
 
-def gemm_core(kernel: str, pa, pb, lmu, lnu, *, ms: ModuliSet) -> torch.Tensor:
+def gemm_core(kernel: str, pa, pb, lmu, lnu, *, ms: ModuliSet,
+              reconstruct: str = "onchip") -> torch.Tensor:
     """The GEMM core (``csrc/hopper_gemm.cuh``) of ``kernel``
     ("ozmm_fused_raw" or "ozmm_fused_parts", whose library it launches from)
     on K-major part stacks pa (N, m, k) and pb (N, n, k) on the card; returns
-    the (m, n) float64 product. The wrapper has checked the shapes."""
+    the (m, n) float64 product, or with ``reconstruct="xla"`` the int16
+    Garner digits (N, m, n), which the kernel writes over its residue
+    scratch. The wrapper has checked the shapes."""
     lib = _load() if kernel == "ozmm_fused_raw" else _load_parts()
     sa, sb = _tuple_of(pa, ms), _tuple_of(pb, ms)
     (_, m, k), n = sa[0].shape, sb[0].shape[1]
     dev = sa[0].device
-    out = torch.empty((m, n), dtype=torch.float64, device=dev)
+    digits = reconstruct == "xla"
+    out = None if digits else torch.empty((m, n), dtype=torch.float64, device=dev)
     res = torch.empty((ms.n, m, n), dtype=torch.int16, device=dev)
     err = getattr(lib, f"{kernel}_launch")(*_ptrs(sa), *_ptrs(sb), lmu.data_ptr(),
-                                          lnu.data_ptr(), res.data_ptr(), out.data_ptr(),
+                                          lnu.data_ptr(), res.data_ptr(),
+                                          None if digits else out.data_ptr(),
                                           m, n, k, ms.n, dev.index, *moduli_tail(ms, dev))
     raise_on_error(kernel, lib, err)
-    return out
+    return res if digits else out
 
 
 def ozmm_fused_raw(mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl, *,
-                   ms: ModuliSet) -> torch.Tensor:
-    """Fused emulated GEMM from raw frames, (m, n) float64. CUDA tensors run
-    the kernels (the residue prologue of each operand, then the core; or
-    raise); CPU tensors run ``ozmm_fused_raw_ref``."""
+                   ms: ModuliSet, reconstruct: str = "onchip") -> torch.Tensor:
+    """Fused emulated GEMM from raw frames, (m, n) float64, or with
+    ``reconstruct="xla"`` the int16 Garner digit stack (N, m, n). CUDA
+    tensors run the kernels (the residue prologue of each operand, then the
+    core; or raise); CPU tensors run ``ozmm_fused_raw_ref``."""
+    reconstruct = resolve_reconstruct(reconstruct)
     args = (mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl)
     m, k = mh_a.shape
     n = mh_b.shape[1]
@@ -323,10 +427,10 @@ def ozmm_fused_raw(mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl, *,
                         [(nm, t, torch.int32, sh) for nm, t, sh in zip(names, args, shapes)],
                         m, n, k, ms)
     if dev.type == "cpu":
-        return ozmm_fused_raw_ref(*args, ms=ms)
+        return ozmm_fused_raw_ref(*args, ms=ms, reconstruct=reconstruct)
     pa = raw_parts(mh_a, ml_a, e_a, lmu, tbl, ms=ms, axis=0)
     pb = raw_parts(mh_b, ml_b, e_b, lnu, tbl, ms=ms, axis=1)
-    out = gemm_core("ozmm_fused_raw", pa, pb, lmu, lnu, ms=ms)
+    out = gemm_core("ozmm_fused_raw", pa, pb, lmu, lnu, ms=ms, reconstruct=reconstruct)
     ozmm_fused_raw.launches += 1
     return out
 
@@ -334,12 +438,15 @@ def ozmm_fused_raw(mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl, *,
 ozmm_fused_raw.launches = 0
 
 
-def ozmm_fused_parts(sa, sb, lmu, lnu, *, ms: ModuliSet) -> torch.Tensor:
+def ozmm_fused_parts(sa, sb, lmu, lnu, *, ms: ModuliSet,
+                     reconstruct: str = "onchip") -> torch.Tensor:
     """Fused emulated GEMM from stacked residue parts (``stack_parts``
     layout: (hi, lo, hs) e4m3 stacks (N, m, k) / (N, k, n) for the fp8
     families, one int8 stack each for int8), lmu (m, 1) and lnu (1, n)
-    int32; (m, n) float64. CUDA tensors run the kernels (B's transpose, then
+    int32; (m, n) float64, or with ``reconstruct="xla"`` the int16 Garner
+    digit stack (N, m, n). CUDA tensors run the kernels (B's transpose, then
     the core; or raise); CPU tensors run ``ozmm_fused_parts_ref``."""
+    reconstruct = resolve_reconstruct(reconstruct)
     int8 = ms.family == "int8"
     parts_a, parts_b = ((sa,), (sb,)) if int8 else (tuple(sa), tuple(sb))
     m, k = parts_a[0].shape[1:]
@@ -350,10 +457,11 @@ def ozmm_fused_parts(sa, sb, lmu, lnu, *, ms: ModuliSet) -> torch.Tensor:
              + [("lmu", lmu, torch.int32, (m, 1)), ("lnu", lnu, torch.int32, (1, n))])
     dev = _check_inputs("ozmm_fused_parts", named, m, n, k, ms)
     if dev.type == "cpu":
-        return ozmm_fused_parts_ref(sa, sb, lmu, lnu, ms=ms)
+        return ozmm_fused_parts_ref(sa, sb, lmu, lnu, ms=ms, reconstruct=reconstruct)
     if any(t.data_ptr() % 16 for t in parts_a + parts_b):
         raise ValueError("ozmm_fused_parts: the part stacks must be 16-byte aligned")
-    out = gemm_core("ozmm_fused_parts", sa, transpose_parts(sb, ms=ms), lmu, lnu, ms=ms)
+    out = gemm_core("ozmm_fused_parts", sa, transpose_parts(sb, ms=ms), lmu, lnu, ms=ms,
+                    reconstruct=reconstruct)
     ozmm_fused_parts.launches += 1
     return out
 

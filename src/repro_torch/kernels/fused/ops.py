@@ -1,7 +1,9 @@
 """Host side of the fused emulated GEMM (the torch counterpart of
 ``repro/kernels/fused/ops.py``): scaling and the raw-frame decomposition in
 plain PyTorch, zero padding to the kernel tile, one ``ozmm_fused_raw``
-call (K1), crop. Prepared pairings (``ozmm_pallas_fused_prepared``) stream a
+call (K1), crop (with ``reconstruct="xla"``: crop the digit stack and
+combine it by ``crt.reconstruct``, the reference's ``_epilogue``). Prepared
+pairings (``ozmm_pallas_fused_prepared``) stream a
 fast-mode plan's cached parts through one ``ozmm_fused_parts`` call (K2), and
 run an accurate-mode pairing on ``ozmm_fused_raw`` under the exponents of
 its bound GEMM.
@@ -17,12 +19,12 @@ import os
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import scaling
+from repro_torch.core import crt, scaling
 from repro_torch.core.moduli import DEFAULT_NUM_MODULI, ModuliSet, make_moduli_set
 from repro_torch.core.plan import QuantizedMatrix, pair_exponents, pow2_tables
 
 from ..common import resolve_reconstruct, row_major, stack_parts
-from .kernel import KERNEL_TILE, MANT_SPLIT, ozmm_fused_parts, ozmm_fused_raw
+from .kernel import KERNEL_TILE, MANT_SPLIT, check_k, ozmm_fused_parts, ozmm_fused_raw
 
 #: Env override of the padding tile: "bm,bn,bk" (the ``blocks=`` kwarg wins
 #: over the env, the env over the table).
@@ -103,36 +105,53 @@ def fused_parts_args(sa, lmu, sb, lnu, ms: ModuliSet, blocks) -> tuple:
     return pa, pb, _pad2(lmu[:, None], bm, 1), _pad2(lnu[None, :], 1, bn)
 
 
-def _fused_from_frames(a, lmu, b, lnu, *, ms: ModuliSet, blocks) -> torch.Tensor:
+def _epilogue(out, m: int, n: int, ms: ModuliSet, lmu, lnu, reconstruct: str):
+    """Crop the padding; for the digit stack, the f64 combine
+    (``crt.reconstruct``: the kernel's Kahan sum and ``ldexp_wide``, so the
+    two modes give the same bits)."""
+    if reconstruct == "onchip":
+        return out[:m, :n]
+    return crt.reconstruct(out[:, :m, :n], ms, lmu, lnu)
+
+
+def _fused_from_frames(a, lmu, b, lnu, *, ms: ModuliSet, blocks,
+                       reconstruct: str) -> torch.Tensor:
     """Raw-frame path: decompose both operands, pad, one ``ozmm_fused_raw``
-    call, crop."""
+    call, epilogue."""
     args = fused_raw_args(a, lmu, b, lnu, ms, blocks)
-    return ozmm_fused_raw(*args, ms=ms)[:a.shape[0], :b.shape[1]]
+    return _epilogue(ozmm_fused_raw(*args, ms=ms, reconstruct=reconstruct), a.shape[0],
+                     b.shape[1], ms, lmu, lnu, reconstruct)
 
 
-def _fused_from_parts(sa, lmu, sb, lnu, *, ms: ModuliSet, blocks) -> torch.Tensor:
+def _fused_from_parts(sa, lmu, sb, lnu, *, ms: ModuliSet, blocks,
+                      reconstruct: str) -> torch.Tensor:
     """Prepared fast-mode path: the cached part stacks, padded, through one
-    ``ozmm_fused_parts`` call, crop."""
-    m, n = lmu.shape[0], lnu.shape[0]
-    return ozmm_fused_parts(*fused_parts_args(sa, lmu, sb, lnu, ms, blocks), ms=ms)[:m, :n]
+    ``ozmm_fused_parts`` call, epilogue."""
+    out = ozmm_fused_parts(*fused_parts_args(sa, lmu, sb, lnu, ms, blocks), ms=ms,
+                           reconstruct=reconstruct)
+    return _epilogue(out, lmu.shape[0], lnu.shape[0], ms, lmu, lnu, reconstruct)
 
 
 def ozmm_pallas_fused(a: torch.Tensor, b: torch.Tensor, *, family: str = "fp8-hybrid",
                       num_moduli: int | None = None, mode: str = "accurate",
                       reconstruct: str | None = None, blocks=None) -> torch.Tensor:
     """Single-kernel emulated FP64 matmul of 2-D tensors on their device (the
-    name is the reference's). Bitwise-equal to ``core.ozaki2.ozmm_ozaki2``;
-    any m/n/k (zero-pad + crop)."""
-    resolve_reconstruct(reconstruct)
+    name is the reference's). Bitwise-equal to ``core.ozaki2.ozmm_ozaki2``
+    up to k = 2^16 (past it, the kernel's chunked sums are exact where one
+    f32 product is not); any m/n/k (zero-pad + crop); either
+    ``reconstruct`` mode gives the same bits."""
+    reconstruct = resolve_reconstruct(reconstruct)
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"ozmm_pallas_fused takes 2-D operands, got "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
     ms = make_moduli_set(family, num_moduli or DEFAULT_NUM_MODULI[family])
+    check_k("ozmm_fused_raw", a.shape[1], ms)  # before the frames of a long k
     a = a.to(torch.float64)
     b = b.to(torch.float64)
     scal = scaling.compute_scaling(a, b, ms, mode)  # on the layout the core route sees
     return _fused_from_frames(row_major(a), scal.lmu, row_major(b), scal.lnu, ms=ms,
-                              blocks=select_blocks(a.device.type, blocks))
+                              blocks=select_blocks(a.device.type, blocks),
+                              reconstruct=reconstruct)
 
 
 def ozmm_pallas_fused_prepared(qa: QuantizedMatrix, qb: QuantizedMatrix, *,
@@ -145,13 +164,14 @@ def ozmm_pallas_fused_prepared(qa: QuantizedMatrix, qb: QuantizedMatrix, *,
     pairing exponents from the cached casts (``pair_exponents``: the bound
     GEMM, an f32 ``torch.matmul`` outside any kernel) and runs the raw-frame
     kernel ``ozmm_fused_raw``, which quantizes on chip under them. Bitwise
-    equal to ``ozmm_prepared`` in both modes.
+    equal to ``ozmm_prepared`` in both modes (up to k = 2^16).
     """
-    resolve_reconstruct(reconstruct)
+    reconstruct = resolve_reconstruct(reconstruct)
     ms = qa.ms
     blocks = select_blocks(qa.device.type, blocks)
     lmu, lnu = pair_exponents(qa, qb)
     if qa.mode == "fast":
         return _fused_from_parts(stack_parts(qa.parts, ms), lmu, stack_parts(qb.parts, ms),
-                                 lnu, ms=ms, blocks=blocks)
-    return _fused_from_frames(qa.x, lmu, qb.x, lnu, ms=ms, blocks=blocks)
+                                 lnu, ms=ms, blocks=blocks, reconstruct=reconstruct)
+    return _fused_from_frames(qa.x, lmu, qb.x, lnu, ms=ms, blocks=blocks,
+                              reconstruct=reconstruct)

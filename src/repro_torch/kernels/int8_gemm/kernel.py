@@ -5,8 +5,9 @@ replaces
 ``repro/kernels/int8_gemm/kernel.py::int8_gemm`` (body ``_gemm_kernel``),
 and its plain PyTorch version.
 
-int8 A (m, k) @ int8 B (k, n) -> int32 C (m, n), exact for k <= 2^17;
-guarded at the pipeline's 2^16. Any m, n, k (masked edges, no padding);
+int8 A (m, k) @ int8 B (k, n) -> int32 C (m, n), exact for |x| <= 127 and
+k <= 2^17, the reference's limit, which the wrapper guards
+(``fp8_gemm.kernel.max_k``). Any m, n, k (masked edges, no padding);
 ``out=`` writes C into a preallocated plane. B K-major or contiguous, and
 the route, as for K3 (``fp8_gemm.kernel.residue_gemm``).
 

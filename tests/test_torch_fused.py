@@ -100,9 +100,10 @@ def test_select_blocks_precedence(monkeypatch):
 
 
 def test_resolve_reconstruct_onchip_only():
+    """None resolves to the on-chip f64 epilogue; the digit stack ("xla") is
+    taken by name."""
     assert resolve_reconstruct(None) == resolve_reconstruct("onchip") == "onchip"
-    with pytest.raises(NotImplementedError, match="ROADMAP B6"):
-        resolve_reconstruct("xla")
+    assert resolve_reconstruct("xla") == "xla"
     with pytest.raises(ValueError):
         resolve_reconstruct("hbm")
 
@@ -141,10 +142,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng, monkeypatch):
         fused.ozmm_fused_raw(*args[:8] + [args[8][:3]], ms=ms)
     with pytest.raises(ValueError, match="kernel tile"):
         fused.ozmm_fused_raw(*_frames(rng, ms, k=32, blocks=(1, 1, 1)), ms=ms)
-    monkeypatch.setattr(fused_kernel, "MAX_K", 32)
+    monkeypatch.setattr(fused_kernel, "max_k", lambda ms: 32)
     with pytest.raises(ValueError, match="exceeds"):
         fused.ozmm_fused_raw(*args, ms=ms)
-    monkeypatch.setattr(fused_kernel, "MAX_K", 2 ** 16)
+    monkeypatch.setattr(fused_kernel, "max_k", lambda ms: 2 ** 16)
     monkeypatch.setattr(fused_kernel, "MAX_MODULI", 3)
     with pytest.raises(ValueError, match="moduli exceed"):
         fused.ozmm_fused_raw(*args, ms=ms)

@@ -167,6 +167,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng, monkeypatch):
         fused.ozmm_fused_parts(tuple(v[:, :, :32].contiguous() for v in pa),
                                tuple(v[:, :32].contiguous() for v in pb), lmu, lnu, ms=ms)
     ms, (pa, pb, lmu, lnu) = _stacks(rng)
-    monkeypatch.setattr(fused_kernel, "MAX_K", 32)
+    monkeypatch.setattr(fused_kernel, "max_k", lambda ms: 32)
     with pytest.raises(ValueError, match="exceeds"):
         fused.ozmm_fused_parts(pa, pb, lmu, lnu, ms=ms)

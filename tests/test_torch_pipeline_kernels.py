@@ -191,7 +191,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(monkeypatch):
     with pytest.raises(ValueError, match="out must be a contiguous float32"):
         kn.fp8_gemm(a, torch.zeros((16, 4), dtype=torch.float8_e4m3fn),
                     out=torch.zeros((4, 8)).t())
-    monkeypatch.setattr(k3_module, "MAX_K", 8)
+    monkeypatch.setattr(k3_module, "max_k", lambda in_dtype: 8)
     with pytest.raises(ValueError, match="exceeds"):
         kn.int8_gemm(torch.zeros((8, 16), dtype=torch.int8), torch.zeros((16, 4), dtype=torch.int8))
     frame = [torch.zeros((8, 16), dtype=torch.int32) for _ in range(3)]

@@ -251,15 +251,18 @@ def test_checkpoint_async_save_copies_now_and_idempotent_resave(tmp_path):
     _assert_tree_equal(mgr.restore(_tree(0))[1], _tree(2))
 
 
-def test_contraction_past_max_k_raises_on_the_kernel_route(monkeypatch):
-    """An lm_head past 2^16 vocabulary rows: its input gradient contracts
-    over the vocabulary, and K1 refuses it rather than rerouting."""
+@pytest.mark.parametrize("spec,limit", [("ozaki2-fp8/fast", 2 ** 21),
+                                        ("ozaki2-int8/fast", 2 ** 16)])
+def test_contraction_past_max_k_raises_on_the_kernel_route(monkeypatch, spec, limit):
+    """An lm_head past K1's limit in vocabulary rows (the fp8 families' 2^21,
+    int8's 2^16): its input gradient contracts over the vocabulary, and K1
+    refuses it rather than rerouting."""
     monkeypatch.setattr(gemm, "_resolve_backend", lambda pol, dev: "pallas")
     core_calls = []
     monkeypatch.setattr(gemm, "ozmm_ozaki2", lambda *a, **k: core_calls.append(1))
-    k = 2 ** 16 + 128
+    k = limit + 128
     g = torch.ones((2, k), dtype=torch.float64)
     w_t = torch.ones((k, 3), dtype=torch.float64)  # lm_head^T: dA = dlogits @ W^T
-    with pytest.raises(ValueError, match=f"k = {k} exceeds 65536"):
-        matmul(g, w_t, "ozaki2-fp8/fast")
+    with pytest.raises(ValueError, match=f"k = {k} exceeds {limit}"):
+        matmul(g, w_t, spec)
     assert core_calls == []
