@@ -8,6 +8,8 @@
         argparse.Namespace(seed=0), torch.device("cuda"))'  # phase 12 alone
     python3 -c 'import chip_smoke as c, torch, argparse; c.dist_phase(argparse.Namespace(
         seed=0, size=8192, hpl_n=8192), torch.device("cuda"), [])'  # phase 13 alone
+    python3 -c 'import chip_smoke as c, torch, argparse; c.perf_phase(
+        argparse.Namespace(seed=0), torch.device("cuda"))'  # phase 14 alone
 
 Phases, each printing its elapsed time; any failed check raises and the
 script exits non-zero without printing a result:
@@ -268,12 +270,37 @@ script exits non-zero without printing a result:
    residuals' rank matvecs), seconds, GFLOP/s and the split by stage beside
    phase 7's single-device run.
 
+14. the perf sweep and resolve_fastest (repro_torch.perf): run_sweep on the
+   card over repro_torch.perf.sweep's full grid: 4096^3 and qwen2-7b's
+   decode MLP up-projection 4 x 3584 x 18944, 20 specs (fp8 fast @5..12,
+   fp8 accurate @4, 7, 10, 12, int8 fast @6, 9, 13, 14, Karatsuba fast
+   @5, 8, 11, 13: each family at the resolver's floor for each tier and at
+   its default count), each on '+core', '+pallas' (K1) and
+   '+pallas+unfused' (K6, K3/K4, K5), a warm-up and 3 timed calls a cell,
+   the error against numpy's f64 product. Checks: every '+pallas' and
+   '+pallas+unfused' C equals its '+core' C (bitwise); each cell's
+   launches as the code predicts (K1 and 2 prologues a call; K6 2, K3 3N
+   or K4 N, K5 1 a call; none on '+core'); the grid holds each family's
+   floor for each tier at both shapes; every tier (1e-4, 1e-8, 1e-12) has
+   a winner at 4096^3; the candidate preset round-trips through
+   PerfModel.load; resolve_fastest at 4096^3 with the candidate returns,
+   for each tier, a swept policy at or above the resolver's floor whose
+   measured error meets the tier, and with no preset exactly
+   resolve_for's; with no model named it reads the checked-in
+   presets/h100-sm90.json (fresh on this card) and returns what that file
+   gives, a swept policy whose measured error meets the tier. The cells as
+   schema-v2 rows validate, seed a trajectory store and compare "ok"
+   against it. Printed: the Pareto front and the tier winners of each
+   bucket, in ms. K1 at the decode shape (fp8 fast, 12 moduli) against
+   its plain version, timed beside its bound and cuBLAS DGEMM.
+
 The last two lines are the card (nvidia-smi name, power limit) and
 {"ok": true, "device": {...}}; before them a {"kernels": [...]} line, whose
 rows are the main path's kernels and then each phase's rows (6b's: K1 at
 the long contraction, K1 and K2 in digits mode; 12's: K1 at (a)'s and
-(d)'s lm_head input gradients); the last five are K1, K2, K3, K4 and K6 at
-phase 13's shard shapes, with (a)'s launches.
+(d)'s lm_head input gradients); then K1, K2, K3, K4 and K6 at phase 13's
+shard shapes, with (a)'s launches; the last is K1 at phase 14's decode
+shape, with the sweep's K1 launches.
 """
 from __future__ import annotations
 
@@ -2441,19 +2468,21 @@ def param_slices(params) -> dict:
                         "lm_head")}
 
 
-def k1_train_row(a, b, launches: int) -> dict:
-    """The kernels line's row of K1 at the training path's vocabulary
-    contraction (lm_head's input gradient, dlogits @ W^T): bitwise against
-    its plain version, timed (median of 5 after a warm-up; the plain version
-    median of K1_REPS, each a pass over B's column blocks of at most
-    PLAIN_B_ELEMS) beside its bound and cuBLAS DGEMM on the same f64 inputs."""
+def k1_train_row(a, b, launches: int, spec: str = TRAIN_POLICY,
+                 what: str = "lm_head's input-gradient shape") -> dict:
+    """The kernels line's row of K1 under ``spec`` at ``a @ b``, by default
+    the training path's vocabulary contraction (lm_head's input gradient,
+    dlogits @ W^T): bitwise against its plain version, timed (median of 5
+    after a warm-up; the plain version median of K1_REPS, each a pass over
+    B's column blocks of at most PLAIN_B_ELEMS) beside its bound and cuBLAS
+    DGEMM on the same f64 inputs."""
     import torch
 
     from repro_torch.core.scaling import compute_scaling
     from repro_torch.kernels.fused import KERNEL_TILE, fused_raw_args, ozmm_fused_raw, ozmm_fused_raw_ref
     from repro_torch.precision import parse_policy
 
-    pol = parse_policy(TRAIN_POLICY)
+    pol = parse_policy(spec)
     ms = pol.moduli_set()
     (m, k), n = a.shape, b.shape[1]
     scal = compute_scaling(a, b, ms, pol.mode)
@@ -2477,14 +2506,14 @@ def k1_train_row(a, b, launches: int) -> dict:
     del fa
     t_ops = 3 * ms.n * 2 * m * n * k / H100_FP8_OPS_PER_S * 1e3
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    check(max_err == 0.0, f"K1 at the training shape {m}x{k}x{n} differs from its plain version")
-    row = {"name": "ozmm_fused_raw", "policy": TRAIN_POLICY, "shape": [m, k, n], "route": "cuda",
+    check(max_err == 0.0, f"K1 at {what} {m}x{k}x{n} differs from its plain version")
+    row = {"name": "ozmm_fused_raw", "policy": spec, "shape": [m, k, n], "route": "cuda",
            "source": "src/repro_torch/csrc/fused_raw.cu",
            "replaces": "src/repro/kernels/fused/kernel.py:238",
            "launches": launches, "max_abs_err": max_err, "ms": ms_k1, "plain_ms": ms_plain,
            "bound_ms": max(t_ops, t_bytes), "bound_by": "bytes" if t_bytes > t_ops else "operations",
            "library_ms": ms_dgemm}
-    print(f"  K1 at lm_head's input-gradient shape {m}x{k}x{n} (the vocabulary contraction): "
+    print(f"  K1 at {what} {m}x{k}x{n}: "
           f"{ms_k1:.2f} ms, plain {ms_plain:.2f} ms, bound {row['bound_ms']:.2f} ms "
           f"({row['bound_by']}), cuBLAS DGEMM {ms_dgemm:.2f} ms", flush=True)
     return row
@@ -3292,6 +3321,220 @@ def dist_phase(args, dev, hpl_rows) -> dict:
     return {"kernel_rows": rows, "dist": {"sharded": gemms, **lu}}
 
 
+#: Phase 14: the perf sweep's timed calls a cell (its warm-up and reps).
+SWEEP_REPS = 3
+#: The shape of phase 14's K1 row: qwen2-7b's decode MLP up-projection.
+SWEEP_ROW_SHAPE = (4, 3584, 18944)
+
+
+def perf_phase(args, dev) -> dict:
+    """Phase 14 (module docstring): the perf sweep on the card, its checks,
+    resolve_fastest on its candidate, and its rows through the trajectory
+    store."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.perf import (PerfModel, append_results, compare_results,
+                                  hardware_fingerprint, make_results_doc, make_row,
+                                  resolve_fastest, validate_results)
+    from repro_torch.perf import model as perf_model
+    from repro_torch.perf import sweep
+    from repro_torch.precision import parse_policy
+    from repro_torch.precision.resolve import operand_spread_log2
+
+    get, zero = serve_counters()
+    calls = SWEEP_REPS + 1
+    state = {"last": None, "core": None, "checked": 0}
+
+    def on_cell(cell, out):
+        counts = get()
+        moved = {k: counts[k] - state["last"][k] for k in counts}
+        state["last"] = counts
+        pol = parse_policy(cell["spec"])
+        n_mod, route = pol.moduli_set().n, cell["route"]
+        want = {k: 0 for k in counts}
+        if route == "pallas":
+            want.update({"K1": calls, "K1 prologue": 2 * calls})
+        elif route == "unfused":
+            int8 = pol.family == "int8"
+            want.update({"K6": 2 * calls, "K5": calls,
+                         ("K4" if int8 else "K3"): (1 if int8 else 3) * n_mod * calls})
+        what = f"{cell['spec']} {cell['m']}x{cell['k']}x{cell['n']}"
+        check(moved == want, f"sweep {what}: launches {moved}, predicted {want}")
+        check(out.shape == (cell["m"], cell["n"]) and bool(torch.isfinite(out).all()),
+              f"sweep {what}: output not finite or of the wrong shape")
+        base = cell["spec"][:len(cell["spec"]) - len(sweep._ROUTE_SUFFIX[route])]
+        key = (cell["m"], cell["k"], cell["n"], base)
+        if route == "core":
+            state["core"] = (key, out)
+        else:
+            check(state["core"] is not None and state["core"][0] == key,
+                  f"sweep {what}: no +core cell before it")
+            check_equal(out, state["core"][1], f"sweep {what} vs +core")
+            state["checked"] += 1
+
+    zero()
+    state["last"] = get()
+    t0 = time.perf_counter()
+    result = sweep.run_sweep(sweep.FULL_SHAPES, sweep.FULL_SPECS, sweep.FULL_ROUTES,
+                             sweep.DEFAULT_TIERS, reps=SWEEP_REPS, device=dev, on_cell=on_cell,
+                             log=lambda *_: None,
+                             generated_by="chip_smoke.py phase 14 (python -m "
+                                          "repro_torch.perf.sweep's full grid, reps 3)")
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = get()
+    state["core"] = None
+    cells, cand = result["cells"], result["candidate"]
+    n_specs = len(sweep.expand_specs(sweep.FULL_SPECS))
+    check(len(cells) == len(sweep.FULL_SHAPES) * n_specs * len(sweep.FULL_ROUTES),
+          f"sweep: {len(cells)} cells")
+    check(state["checked"] == len(sweep.FULL_SHAPES) * n_specs * 2,
+          f"sweep: {state['checked']} kernel-route cells held against +core")
+    print(f"  sweep: {len(cells)} cells ({len(sweep.FULL_SHAPES)} shapes x {n_specs} specs x "
+          f"{len(sweep.FULL_ROUTES)} routes, {calls} calls each) in {sweep_s:.1f} s; every "
+          f"+pallas and +pallas+unfused C == its +core C (bitwise); launches {launches} as "
+          "predicted cell by cell", flush=True)
+
+    def swept_key(spec):
+        """A spec's policy with its modulus count spelt out: '@13' and the
+        default name one cell."""
+        pol = parse_policy(spec)
+        return pol.scheme, pol.mode, pol.moduli_set().n, pol.backend, pol.fused
+
+    # the grid holds each family's floor at each tier: whatever a preset entry
+    # is clamped up to was measured
+    swept = {swept_key(s) for s in sweep.expand_specs(sweep.FULL_SPECS)}
+    for shape in sweep.FULL_SHAPES:
+        a_np, b_np = sweep.draw_operands(*shape)
+        spread = operand_spread_log2(a_np) + operand_spread_log2(b_np)
+        del a_np, b_np
+        floors = {}
+        for scheme, mode in sorted({key[:2] for key in swept}):
+            base = parse_policy(f"{scheme}/{mode}")
+            floors[f"{scheme}/{mode}"] = [
+                base.resolve_for(None, None, t, k=shape[1], spread_log2=spread).num_moduli
+                for t in sweep.DEFAULT_TIERS]
+            for n_floor in floors[f"{scheme}/{mode}"]:
+                check((scheme, mode, n_floor, "auto", True) in swept,
+                      f"sweep: {scheme}/{mode}@{n_floor}, a floor at "
+                      f"{'x'.join(map(str, shape))}, is not in the grid")
+        print(f"  floors at {'x'.join(map(str, shape))} (tiers {sweep.DEFAULT_TIERS}): "
+              + ", ".join(f"{fam} {v}" for fam, v in floors.items()) + "; all swept")
+
+    m, k, n = sweep.FULL_SHAPES[0]
+    bucket = next(c["shape_bucket"] for c in cells if (c["m"], c["k"], c["n"]) == (m, k, n))
+    for key, front in result["pareto"].items():
+        print(f"  pareto {key}: " + "; ".join(
+            f"{c['spec']} {c['wall_seconds'] * 1e3:.3f} ms {c['rel_err']:.2e}" for c in front))
+    for e in cand.entries:
+        print(f"  winner {e.shape_bucket}@{e.backend} tier {e.tier:g}: {e.spec} "
+              f"{e.wall_seconds * 1e3:.3f} ms, rel_err {e.rel_err:.2e}")
+    for miss in result["unmet_tiers"]:
+        print(f"  sweep: no cell met {miss}")
+    tiers_met = {e.tier for e in cand.entries if e.shape_bucket == bucket}
+    check(tiers_met == set(sweep.DEFAULT_TIERS),
+          f"sweep: tiers met at {bucket}: {sorted(tiers_met)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "preset_candidate.json")
+        cand.save(path)
+        loaded = PerfModel.load(path)
+        check(loaded.entries == cand.entries, "the candidate does not round-trip")
+
+        # resolve_fastest on the swept operands: the candidate's winner, never
+        # below the resolver's floor, its measured error within the tier; with
+        # no preset, resolve_for's answer; with no model named, what the
+        # checked-in card preset gives, as a user gets it
+        a_np, b_np = sweep.draw_operands(m, k, n)
+        a, b = torch.from_numpy(a_np).to(dev), torch.from_numpy(b_np).to(dev)
+        by_spec = {swept_key(c["spec"]): c for c in cells
+                   if (c["m"], c["k"], c["n"]) == (m, k, n)}
+        perf_model.clear_default_model()
+        card_preset = PerfModel.load(os.path.join(perf_model.PRESETS_DIR, "h100-sm90.json"))
+        check(card_preset.fresh(hardware_fingerprint(dev)),
+              "presets/h100-sm90.json is not fresh on this card")
+        check(perf_model.default_model(device=dev) is not None,
+              "no checked-in preset is fresh on this card")
+        resolved = {}
+        for tier in sweep.DEFAULT_TIERS:
+            got = resolve_fastest(a, b, tier, model=loaded)
+            floor = parse_policy(got.spec).resolve_for(a, b, tier).num_moduli
+            check(got.num_moduli >= floor, f"resolve_fastest {tier:g}: {got.spec} below the "
+                                           f"floor of {floor} moduli")
+            cell = by_spec.get(swept_key(got.spec))
+            check(cell is not None and cell["rel_err"] <= tier,
+                  f"resolve_fastest {tier:g}: {got.spec} not swept or measured "
+                  f"{cell and cell['rel_err']}")
+            check(loaded.lookup(m, k, n, dev.type, tier) is not None,
+                  f"resolve_fastest {tier:g}: the candidate has no entry")
+            shipped = resolve_fastest(a, b, tier)
+            want = resolve_fastest(a, b, tier, model=card_preset)
+            shipped_cell = by_spec.get(swept_key(shipped.spec))
+            check(card_preset.lookup(m, k, n, dev.type, tier) is not None and shipped == want
+                  and shipped_cell is not None and shipped_cell["rel_err"] <= tier,
+                  f"resolve_fastest {tier:g} with the checked-in presets: {shipped.spec}, "
+                  f"presets/h100-sm90.json gives {want.spec}, measured "
+                  f"{shipped_cell and shipped_cell['rel_err']}")
+            perf_model.set_default_model(None)
+            plain = resolve_fastest(a, b, tier)
+            perf_model.clear_default_model()
+            check(plain == parse_policy("ozaki2-fp8/fast").resolve_for(a, b, tier),
+                  f"resolve_fastest {tier:g} without a preset: {plain.spec}")
+            resolved[f"{tier:g}"] = {"candidate": got.spec, "floor": floor,
+                                     "rel_err": cell["rel_err"], "no_preset": plain.spec,
+                                     "shipped": shipped.spec,
+                                     "shipped_ms": shipped_cell["wall_seconds"] * 1e3,
+                                     "shipped_rel_err": shipped_cell["rel_err"]}
+            print(f"  resolve_fastest {tier:g} at {m}x{k}x{n}: {got.spec} (floor {floor} "
+                  f"moduli, measured {cell['wall_seconds'] * 1e3:.3f} ms, "
+                  f"{cell['rel_err']:.2e}); without a preset {plain.spec}; with the "
+                  f"checked-in presets {shipped.spec} (measured "
+                  f"{shipped_cell['wall_seconds'] * 1e3:.3f} ms, "
+                  f"{shipped_cell['rel_err']:.2e})", flush=True)
+        del a, b
+
+        # the cells as schema-v2 rows, through a trajectory store
+        rows = [make_row("perf_sweep", f"{c['spec']}@{c['m']}x{c['k']}x{c['n']}",
+                         c["wall_seconds"], policy=c["spec"],
+                         throughput=2 * c["m"] * c["k"] * c["n"] / c["wall_seconds"] / 1e12,
+                         throughput_unit="TF-equiv", accuracy=c["rel_err"],
+                         accuracy_gate=max(sweep.DEFAULT_TIERS), route=c["route"],
+                         mma_ops=c["mma_ops"], residue_bytes=c["residue_bytes"])
+                for c in cells]
+        doc = validate_results(make_results_doc(rows, policy_specs=list(sweep.FULL_SPECS),
+                                                argv=["chip_smoke.py"], device=dev))
+        store = os.path.join(tmp, "trajectory")
+        seeded = compare_results(doc, store)["status"]
+        written = append_results(doc, store)
+        report = compare_results(doc, store)
+        check(seeded == "baseline-seeded" and written == len(rows) and report["status"] == "ok"
+              and not report["accuracy_breaches"],
+              f"trajectory: {seeded}, {written} rows, then {report['status']} "
+              f"{report['regressions']} {report['accuracy_breaches']}")
+        print(f"  rows: {len(rows)} schema-v2 rows validated; trajectory store: {seeded}, "
+              f"{written} appended, compared against themselves: {report['status']} "
+              f"({len(report['rows'])} report rows, no accuracy breach)", flush=True)
+
+    # the kernels line's row: K1 at the decode shape, with the sweep's launches
+    gen = np.random.default_rng(args.seed + 14)
+    dm, dk, dn = SWEEP_ROW_SHAPE
+    a = torch.from_numpy(gen.standard_normal((dm, dk))).to(dev)
+    b = torch.from_numpy(gen.standard_normal((dk, dn))).to(dev)
+    row = k1_train_row(a, b, launches["K1"], spec="ozaki2-fp8/fast@12",
+                       what="qwen2-7b's decode MLP up-projection")
+    del a, b
+    torch.cuda.empty_cache()
+    return {"k1_row": row, "perf": {
+        "seconds_sweep": sweep_s, "launches": launches, "resolved": resolved,
+        "cells": [{k: c[k] for k in ("spec", "route", "m", "k", "n", "wall_seconds",
+                                     "rel_err")} for c in cells],
+        "winners": [e.to_dict() for e in cand.entries],
+        "pareto": {key: [c["spec"] for c in front] for key, front in result["pareto"].items()},
+        "unmet_tiers": result["unmet_tiers"]}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size", type=int, default=8192,
@@ -3756,6 +3999,11 @@ def main() -> int:
     dist = dist_phase(args, dev, hpl_rows)
     t0 = phase("13 distributed", t0)
     print(json.dumps({"dist": dist["dist"]}))
+
+    # ---- 14. the perf sweep and resolve_fastest -----------------------------
+    perf = perf_phase(args, dev)
+    t0 = phase("14 perf sweep/resolve_fastest", t0)
+    print(json.dumps({"perf": perf["perf"]}))
     print(f"total {time.perf_counter() - t_start:.1f} s; DEFAULT_NUM_MODULI "
           f"{DEFAULT_NUM_MODULI}", flush=True)
 
@@ -3768,7 +4016,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in (main, k2_main, *long_rows, *unfused_rows,
                                               serve["k2_row"], families["k2_row"],
-                                              *train["k1_rows"], *dist["kernel_rows"])]}))
+                                              *train["k1_rows"], *dist["kernel_rows"],
+                                              perf["k1_row"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

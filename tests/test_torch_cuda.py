@@ -856,3 +856,24 @@ def test_dist_lu_on_card_equals_single_device():
         assert np.array_equal(x, x_s)
     res = dist.run_hpl_dist(300, "ozaki2-fp8/accurate", grid=(2, 2), block=64)
     assert res["passed"]
+
+
+@pytest.mark.cuda
+def test_sweep_cells_on_card_agree_bitwise():
+    """One measure_cell of the perf sweep on '+pallas' (K1) and on '+core' at
+    512^3 on the card: the same C, bit for bit, and K1 launched once a call
+    (the warm-up and each timed rep)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs the CUDA card")
+    from repro_torch.perf import sweep
+
+    ops = sweep.Operands(512, 512, 512, torch.device("cuda"))
+    launches = fused.ozmm_fused_raw.launches
+    cell, c_kernel = sweep.measure_cell("ozaki2-fp8/fast@8+pallas", 512, 512, 512, reps=2,
+                                        operands=ops, keep_output=True)
+    assert fused.ozmm_fused_raw.launches == launches + 3
+    core, c_core = sweep.measure_cell("ozaki2-fp8/fast@8+core", 512, 512, 512, reps=2,
+                                      operands=ops, keep_output=True)
+    assert fused.ozmm_fused_raw.launches == launches + 3
+    assert torch.equal(c_kernel, c_core)
+    assert cell["backend"] == "cuda" and cell["rel_err"] == core["rel_err"] < 1e-8

@@ -38,7 +38,10 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.serve.batching, repro_torch.train, repro_torch.optim, "
             "repro_torch.checkpoint, repro_torch.data, repro_torch.runtime, "
             "repro_torch.core.distributed, repro_torch.launch, repro_torch.launch.mesh, "
-            "repro_torch.linalg.dist, repro_torch.optim.compress; "
+            "repro_torch.linalg.dist, repro_torch.optim.compress, repro_torch.perf, "
+            "repro_torch.perf.sweep, repro_torch.perf.model, repro_torch.perf.trajectory, "
+            "repro_torch.perf.rows, repro_torch.perf.fingerprint, repro_torch.testing, "
+            "repro_torch.precision.fastest; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
     env = {**os.environ, "PYTHONPATH": str(PORT.parent)}
