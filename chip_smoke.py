@@ -10,6 +10,8 @@
         seed=0, size=8192, hpl_n=8192), torch.device("cuda"), [])'  # phase 13 alone
     python3 -c 'import chip_smoke as c, torch, argparse; c.perf_phase(
         argparse.Namespace(seed=0), torch.device("cuda"))'  # phase 14 alone
+    python3 -c 'import chip_smoke as c, torch, argparse; c.framework_phase(
+        argparse.Namespace(seed=0), torch.device("cuda"))'  # phase 15 alone
 
 Phases, each printing its elapsed time; any failed check raises and the
 script exits non-zero without printing a result:
@@ -294,13 +296,46 @@ script exits non-zero without printing a result:
    bucket, in ms. K1 at the decode shape (fp8 fast, 12 moduli) against
    its plain version, timed beside its bound and cuBLAS DGEMM.
 
+15. the distribution layer (repro_torch.distribution, launch.dryrun),
+   every rank on the card. (a) pipeline_apply (GPipe, M + S - 1 steps) over
+   4 of qwen2-7b's 28 decoder layers at full width (d_model 3584, d_ff
+   18944, 28/4 heads), one a stage on a 4-rank "stage" mesh of the card,
+   6 microbatches of 2 x 512 tokens (bf16 hidden states from the seed),
+   under ozaki2-fp8/fast: the output bitwise equal to the 4 layers applied
+   in sequence to each microbatch, K1 launched 7 times a layer and
+   microbatch (2 prologues each; K2-K6 never); wall time and peak memory.
+   (b) make_sharded_train_step on qwen2-7b at full width, 1 of 28 layers,
+   ozaki2-fp8/fast, a batch of 2 x 256 from synth_batch, from the state the
+   seed draws: on a (data 1, model 4) mesh of the card bitwise equal to the
+   single-device step (loss and every rank's block of the parameters and
+   moments); on (2, 2) the loss within 1e-4 of the single-device loss (the
+   reference's bound), the state after unshard_state and the loss bitwise
+   equal to the same function on one device (each data rank's gradient
+   by train.step.batch_grads, summed in rank order and divided, then
+   optim.update), and that mean gradient within 2e-2 of the whole batch's,
+   normwise in every leaf (bf16 compute rounds each data rank's gradient
+   on its own), where a planted fault (data rank 1's rows dropped) must
+   trip the same bound; the state's deviation from the single-device
+   step's printed, not gated (at step 1 AdamW moves each parameter by
+   ~lr sign(g)), with the share of it that sign flips make; K1 launched
+   as train_gemms reckons it for each data rank; each step's time beside
+   the single device's, and peak memory. (c) dryrun_cell("qwen2-7b", "train_4k") and
+   ("qwen2-7b", "decode_32k") on the 16 x 16 production mesh of meta
+   devices (nothing allocated, the card untouched): status "ok" and
+   flops_per_device equal to launch.dryrun.model_flops, the analytic count
+   of rank 0's program; the records printed. K1 at (a)'s MLP up-projection
+   (1024 x 3584 x 18944) and at (b)'s lm_head input gradient for a data
+   rank of (2, 2) (256 x 152064 x 3584), each against its plain version,
+   timed beside its bound and cuBLAS DGEMM.
+
 The last two lines are the card (nvidia-smi name, power limit) and
 {"ok": true, "device": {...}}; before them a {"kernels": [...]} line, whose
 rows are the main path's kernels and then each phase's rows (6b's: K1 at
 the long contraction, K1 and K2 in digits mode; 12's: K1 at (a)'s and
 (d)'s lm_head input gradients); then K1, K2, K3, K4 and K6 at phase 13's
-shard shapes, with (a)'s launches; the last is K1 at phase 14's decode
-shape, with the sweep's K1 launches.
+shard shapes, with (a)'s launches; K1 at phase 14's decode shape, with
+the sweep's K1 launches; the last two are K1 at phase 15's (a) and (b)
+shapes, with their launches.
 """
 from __future__ import annotations
 
@@ -3535,6 +3570,396 @@ def perf_phase(args, dev) -> dict:
         "unmet_tiers": result["unmet_tiers"]}}
 
 
+#: Phase 15 (a): the GPipe pipeline over PIPE_LAYERS of qwen2-7b's decoder
+#: layers at full width, one a stage on a "stage" mesh of the card, PIPE_M
+#: microbatches of PIPE_MB sequences x PIPE_SEQ tokens.
+PIPE_ARCH, PIPE_POLICY = "qwen2-7b", "ozaki2-fp8/fast"
+PIPE_LAYERS, PIPE_M, PIPE_MB, PIPE_SEQ = 4, 6, 2, 512
+#: (b): the sharded training step at full width, SPMD_LAYERS deep (the
+#: single-device step peaked at 70.54 GB at 2 layers in phase 12: the
+#: sharded state and the gathered leaves take the room of the second), on
+#: these meshes ("data", "model") of the card, a batch of SPMD_BATCH x
+#: SPMD_SEQ tokens.
+SPMD_LAYERS, SPMD_BATCH, SPMD_SEQ = 1, 2, 256
+SPMD_MESHES = ((1, 4), (2, 2))
+#: (b)'s gates on the (2, 2) step against the whole-batch step: the loss
+#: within the reference's 1e-4 (tests/distribution/test_sharded_train.py),
+#: and the data ranks' mean gradient within SPMD_GRAD_TOL of the whole
+#: batch's, normwise in every leaf. The mean is the one the sharded step
+#: used: the one-device oracle that computes it is held bitwise to the
+#: step's state. The gradients are bf16 compute's, each data rank's rounded
+#: on its own. The bound lies between the sound reading and a planted fault
+#: (one data rank's rows dropped), both printed and checked each run.
+SPMD_LOSS_TOL, SPMD_GRAD_TOL = 1e-4, 2e-2
+#: (c): the dry run's cells, on the production mesh of meta devices.
+DRYRUN_CELLS = (("qwen2-7b", "train_4k"), ("qwen2-7b", "decode_32k"))
+
+
+def pipeline_part(args, dev) -> tuple[dict, dict]:
+    """Phase 15 (a) (module docstring). Returns its numbers and K1's row."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distribution.pipeline import pipeline_apply
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.attention import AttnTemporal
+    from repro_torch.models.blocks import block_apply, stage_windows
+
+    get_counts, zero_counts = serve_counters()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(PIPE_ARCH, "full"), num_layers=PIPE_LAYERS,
+                              gemm=PIPE_POLICY)
+    model = Model(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 15)
+    layers = list(model.init(gen).stages[0])
+    windows = stage_windows(cfg, model.stages[0].spec, 0)
+    t = AttnTemporal(positions=model._positions(PIPE_MB, PIPE_SEQ), cache_len=None, pos=None)
+    x = torch.randn((PIPE_M, PIPE_MB, PIPE_SEQ, cfg.d_model), generator=gen,
+                    device=dev).to(model.dtype)
+    mesh = make_mesh((PIPE_LAYERS,), ("stage",), devices=dev)
+
+    def stage(lw, h):
+        return block_apply(lw[0], h, cfg, t, lw[1], {}, "attn_mlp")[0]
+
+    stages = list(zip(layers, windows))
+    with torch.no_grad():
+        zero_counts()
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        out = pipeline_apply(stage, stages, x, mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - tp
+        counts = get_counts()
+        seq = []
+        for mb in range(PIPE_M):
+            h = x[mb]
+            for lw in stages:
+                h = stage(lw, h)
+            seq.append(h)
+        seq = torch.stack(seq)
+    gemms = 7 * PIPE_LAYERS * PIPE_M  # q, k, v, o, gate, up, down a layer and microbatch
+    want = {k: 0 for k in counts}
+    want.update({"K1": gemms, "K1 prologue": 2 * gemms})
+    check(counts == want, f"pipeline launches {counts}, predicted {want}")
+    check(out.shape == x.shape and bool(torch.isfinite(out).all()),
+          "pipeline output not finite or of the wrong shape")
+    check_equal(out, seq, "the pipeline vs the sequential stack")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  (a) pipeline_apply: {cfg.name} {PIPE_LAYERS} of 28 layers (d_model {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, {cfg.num_heads}/{cfg.num_kv_heads} heads) on a {PIPE_LAYERS}-rank "
+          f"'stage' mesh of the card, {PIPE_M} microbatches of {PIPE_MB} x {PIPE_SEQ} tokens, "
+          f"{PIPE_POLICY}: {PIPE_M + PIPE_LAYERS - 1} steps in {secs:.2f} s; == the sequential "
+          f"stack (bitwise); K1 {counts['K1']} launches (prologue {counts['K1 prologue']}, K2-K6 "
+          f"0, as predicted); peak {peak:.2f} GB", flush=True)
+    rows = PIPE_MB * PIPE_SEQ
+    a = torch.randn((rows, cfg.d_model), generator=gen, device=dev, dtype=torch.float64)
+    w_up = layers[0].mlp.w_up.detach().to(torch.float64)
+    del out, seq, x, layers, stages
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = k1_train_row(a, w_up, counts["K1"], PIPE_POLICY,
+                       what="the pipeline's MLP up-projection")
+    del a, w_up
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": PIPE_LAYERS, "microbatches": PIPE_M, "seconds": secs, "peak_gb": peak,
+            "launches": counts}, row
+
+
+def dp_oracle_step(model, opt_cfg, state, batch, n_data: int):
+    """The sharded step's function on one device, from the port's
+    single-device pieces: ``batch_grads`` on each data rank's rows, the
+    gradients summed in rank order and divided, ``optim.update`` on whole
+    leaves (in place). Returns the loss (the data ranks' mean), the mean
+    gradient and data rank 0's gradient alone, by leaf."""
+    import torch
+
+    from repro_torch.core.collectives import reduce_ranks
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.optim import update
+    from repro_torch.precision import resolve_pinned_policy, use_policy
+    from repro_torch.train.step import batch_grads
+
+    dev = model.device
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    leaves = reference_leaves(state.params)
+    rows = -(-next(iter(batch.values())).shape[0] // n_data)
+    grads, losses = [], []
+    with use_policy(resolve_pinned_policy(model.cfg.gemm, None)):
+        for d in range(n_data):
+            g, m = batch_grads(model, state.params, leaves,
+                               {k: v[d * rows:(d + 1) * rows] for k, v in batch.items()})
+            grads.append(g)
+            losses.append(m["loss"])
+        first = dict(grads[0])
+        mean = {k: reduce_ranks([g.pop(k) for g in grads], torch.add, dev).div_(n_data)
+                for k in leaves}
+        update(opt_cfg, mean, state.opt, leaves)
+    return float(reduce_ranks(losses, torch.add, dev) / n_data), mean, first
+
+
+def rel_norm(x, ref) -> float:
+    """||x - ref|| / ||ref||, in f64."""
+    import torch
+
+    x, ref = x.double(), ref.double()
+    return float(torch.linalg.norm(x - ref) / max(float(torch.linalg.norm(ref)), 1e-300))
+
+
+def spmd_part(args, dev) -> tuple[dict, dict]:
+    """Phase 15 (b) (module docstring). Returns its numbers and K1's row."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.distribution.spmd import make_sharded_train_step
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.precision import resolve_pinned_policy, use_policy
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import batch_grads
+
+    get_counts, zero_counts = serve_counters()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(PIPE_ARCH, "full"), num_layers=SPMD_LAYERS,
+                              gemm=PIPE_POLICY)
+    model = Model(cfg, device=dev)
+    opt_cfg = AdamWConfig()
+    init_state, step = make_train_step(model, opt_cfg)
+    batch = synth_batch(DataConfig(seed=args.seed, batch=SPMD_BATCH, seq_len=SPMD_SEQ,
+                                   vocab_size=cfg.vocab_size), cfg, 0)
+    fwd, recompute, bwd = train_gemms(cfg)
+    per_grad = fwd + recompute + bwd
+
+    def fresh():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 16)
+        return init_state(gen)
+
+    def run(fn, *a):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, get_counts(), \
+            torch.cuda.max_memory_allocated() / 1e9
+
+    def want(n):
+        w = {k: 0 for k in get_counts()}
+        w.update({"K1": n, "K1 prologue": 2 * n})
+        return w
+
+    tb = time.perf_counter()
+    (state, m1), ms1, c1, peak1 = run(step, fresh(), batch)
+    t_host = time.perf_counter()
+    check(c1 == want(per_grad), f"single-device step launches {c1}, predicted {want(per_grad)}")
+    loss1 = float(m1["loss"])
+    check(math.isfinite(loss1), f"single-device loss {loss1}")
+    def pinned(t):  # a host copy in page-locked memory: the state moves at PCIe rate
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t.detach())
+
+    # the single-device result, on the host, leaf by leaf in the reference's order
+    host = {k: (pinned(p), pinned(state.opt.m[k]), pinned(state.opt.v[k]))
+            for k, p in reference_leaves(state.params).items()}
+    n_params = sum(p.numel() for p, _, _ in host.values())
+    t_host = time.perf_counter() - t_host
+    del state, m1
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (b) {cfg.name} {SPMD_LAYERS} of 28 layers at full width ({n_params / 1e9:.3f} G "
+          f"parameters), {PIPE_POLICY}, a batch of {SPMD_BATCH} x {SPMD_SEQ}: single-device "
+          f"step {ms1:.1f} ms, loss {loss1:.6f}, K1 {c1['K1']} launches ({fwd} forward + "
+          f"{recompute} recomputed + {bwd} backward), peak {peak1:.2f} GB; its state to the "
+          f"host in {t_host:.1f} s", flush=True)
+    out = {"params": n_params, "single": {"ms": ms1, "loss": loss1, "peak_gb": peak1,
+                                          "launches": c1}}
+    for shape in SPMD_MESHES:
+        mesh = make_host_mesh(*shape, devices=dev)
+        shard_state, sstep, unshard_state = make_sharded_train_step(model, opt_cfg, mesh)
+        t_shard = time.perf_counter()
+        sharded = shard_state(fresh())
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_shard = time.perf_counter() - t_shard
+        (sharded, m2), ms2, c2, peak2 = run(sstep, sharded, batch)
+        t_checks = time.perf_counter()
+        data = shape[0]
+        check(c2 == want(data * per_grad),
+              f"{shape} sharded step launches {c2}, predicted {want(data * per_grad)}")
+        loss2 = float(m2["loss"])
+        if data == 1:  # the single-device step's ops on the same values
+            check(loss2 == loss1, f"{shape}: loss {loss2} != single-device {loss1}")
+            for k, (p, m, v) in host.items():
+                for what, pl, ref in (("param", sharded.params[k], p),
+                                      ("m", sharded.opt.m[k], m), ("v", sharded.opt.v[k], v)):
+                    ref = ref.to(dev)
+                    for r, blk in enumerate(pl.blocks):
+                        check(torch.equal(blk, pl.sharding.block(ref, r)),
+                              f"{shape}: {k} {what} rank {r} differs from the single-device "
+                              "step")
+                    del ref
+            verdict = "bitwise equal to the single-device step (loss, every block)"
+        else:
+            check(abs(loss2 - loss1) <= SPMD_LOSS_TOL,
+                  f"{shape}: loss {loss2} vs single-device {loss1}")
+            back = unshard_state(sharded)
+            got = {k: (pinned(p), pinned(back.opt.m[k]), pinned(back.opt.v[k]))
+                   for k, p in reference_leaves(back.params).items()}
+            del back, sharded
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the same step's ops on one device: each data rank's gradient,
+            # summed in rank order and divided, then AdamW on whole leaves;
+            # first the whole batch's gradient from the same state
+            oracle = fresh()
+            with use_policy(resolve_pinned_policy(cfg.gemm, None)):
+                whole, _ = batch_grads(model, oracle.params, reference_leaves(oracle.params),
+                                       {k: torch.as_tensor(v, device=dev)
+                                        for k, v in batch.items()})
+            loss_dp, mean, first = dp_oracle_step(model, opt_cfg, oracle, batch, data)
+            check(loss_dp == loss2, f"{shape}: loss {loss2} != the one-device oracle's {loss_dp}")
+            for k, q in reference_leaves(oracle.params).items():
+                for what, mine, ref in (("param", got[k][0], q), ("m", got[k][1], oracle.opt.m[k]),
+                                        ("v", got[k][2], oracle.opt.v[k])):
+                    check(torch.equal(mine.to(dev), ref.detach()),
+                          f"{shape}: {k} {what} differs from the one-device oracle")
+            del oracle
+            # the data ranks' mean gradient against the whole batch's, leaf
+            # by leaf; and the planted fault, data rank 1's rows dropped
+            grad = {k: (rel_norm(mean[k], w), rel_norm(first[k], w)) for k, w in whole.items()}
+            del mean, first, whole
+            gc.collect()
+            torch.cuda.empty_cache()
+            g_worst = max(grad, key=lambda k: grad[k][0])
+            f_least = min(grad, key=lambda k: grad[k][1])
+            tripped = sum(f > SPMD_GRAD_TOL for _, f in grad.values())
+            print(f"  (b) {shape}: ||mean gradient - whole batch's|| / ||whole batch's|| by "
+                  f"leaf (sound, planted fault): "
+                  + json.dumps({k: [f"{a:.3e}", f"{b:.3e}"] for k, (a, b) in grad.items()}),
+                  flush=True)
+            check(grad[g_worst][0] <= SPMD_GRAD_TOL,
+                  f"{shape}: {g_worst}'s mean gradient {grad[g_worst][0]:.3e} from the whole "
+                  f"batch's, past {SPMD_GRAD_TOL}")
+            check(tripped > 0, f"{shape}: the gate {SPMD_GRAD_TOL} misses the planted fault "
+                  f"(least {f_least} {grad[f_least][1]:.3e})")
+            # beside the whole-batch step's state (readings, not gates: at
+            # step 1 AdamW moves a parameter by ~lr sign(g), so a parameter
+            # differs by 2 lr wherever the two gradients' signs differ)
+            lr = float(m2["lr"])
+            worst = {"param_max_abs": 0.0, "param": (0.0, ""), "moment": (0.0, "")}
+            for k, (p, m, v) in host.items():
+                for what, mine, ref in (("param", got[k][0], p), ("moment", got[k][1], m),
+                                        ("moment", got[k][2], v)):
+                    mine, ref = mine.to(dev), ref.to(dev)
+                    if what == "param":
+                        worst["param_max_abs"] = max(worst["param_max_abs"],
+                                                     float((mine - ref).abs().max()))
+                    worst[what] = max(worst[what], (rel_norm(mine, ref), k))
+                    del mine, ref
+            # the worst parameter leaf: how many entries moved apart, and on
+            # how many of them the two steps' first moments differ in sign
+            k = worst["param"][1]
+            p_mine, p_ref = got[k][0].to(dev), host[k][0].to(dev)
+            m_mine, m_ref = got[k][1].to(dev), host[k][1].to(dev)
+            moved = p_mine != p_ref
+            flipped = moved & (torch.sign(m_mine) != torch.sign(m_ref))
+            share = rel_norm(torch.where(flipped, p_mine, p_ref), p_ref)
+            why = (f"{k} ({p_ref.numel()} entries, |p| max {float(p_ref.abs().max()):.3e} "
+                   f"after the step): {int(moved.sum())} moved apart, "
+                   f"{int(flipped.sum())} of them with m's sign flipped, which alone read "
+                   f"{share:.2e}; their largest |m| "
+                   f"{float(m_ref[flipped].abs().max()) if bool(flipped.any()) else 0.0:.3e} "
+                   f"of the leaf's {float(m_ref.abs().max()):.3e}")
+            del p_mine, p_ref, m_mine, m_ref, moved, flipped, got
+            verdict = (f"loss within {abs(loss2 - loss1):.2e} of the single-device step (gate "
+                       f"{SPMD_LOSS_TOL}); params, moments and loss bitwise equal to the "
+                       f"one-device oracle; the mean gradient within {grad[g_worst][0]:.3e} "
+                       f"({g_worst}) of the whole batch's, every leaf (gate {SPMD_GRAD_TOL}; "
+                       f"the planted fault trips it in {tripped} of {len(grad)} leaves, least "
+                       f"{grad[f_least][1]:.3e} ({f_least})); beside the whole-batch step: "
+                       f"params max |d| {worst['param_max_abs']:.3e} (2 lr = {2 * lr:.3e}), "
+                       f"normwise per leaf params {worst['param'][0]:.2e} ({why}), moments "
+                       f"{worst['moment'][0]:.2e} ({worst['moment'][1]})")
+            sharded = None
+        print(f"  (b) {time.perf_counter() - tb:.1f} s into (b): shard_state {t_shard:.1f} s, "
+              f"the checks {time.perf_counter() - t_checks:.1f} s", flush=True)
+        print(f"  (b) sharded step on a {shape} (data, model) mesh of the card: {ms2:.1f} ms "
+              f"(single device {ms1:.1f}), loss {loss2:.6f}, K1 {c2['K1']} launches "
+              f"({data} x {per_grad}), peak {peak2:.2f} GB; {verdict}", flush=True)
+        out[f"{shape[0]}x{shape[1]}"] = {"ms": ms2, "loss": loss2, "peak_gb": peak2,
+                                         "launches": c2}
+        del sharded, m2, shard_state, sstep, unshard_state
+        gc.collect()
+        torch.cuda.empty_cache()
+    # K1 at lm_head's input gradient for a data rank of the (2, 2) step
+    rows = SPMD_BATCH * SPMD_SEQ // SPMD_MESHES[-1][0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 17)
+    dlogits = torch.randn((rows, cfg.vocab_size), generator=gen, device=dev,
+                          dtype=torch.float64) * 1e-4
+    w_t = host["lm_head"][0].T.to(dev, torch.float64).contiguous()
+    del host
+    gc.collect()
+    row = k1_train_row(dlogits, w_t, out["2x2"]["launches"]["K1"],
+                       what="the sharded step's lm_head input gradient")
+    del dlogits, w_t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, row
+
+
+def dryrun_part() -> dict:
+    """Phase 15 (c) (module docstring): the dry run's cells on meta."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import BIG_ARCHS, dryrun_cell, model_flops
+
+    out = {}
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun_cell(arch, shape, False)
+        check(rec["status"] == "ok", f"dry run {arch} {shape}: {rec}")
+        s = SHAPES[shape]
+        cfg = get_config(arch, "full", **BIG_ARCHS.get(arch, {}))
+        local = s.global_batch // 16
+        want = model_flops(cfg, s.kind, local, s.seq_len, s.seq_len + 8)
+        check(rec["flops_per_device"] == want,
+              f"dry run {arch} {shape}: {rec['flops_per_device']} FLOPs a rank, analytic {want}")
+        print(f"  (c) dryrun_cell({arch!r}, {shape!r}) on 16 x 16 meta ranks: "
+              + json.dumps(rec), flush=True)
+        out[f"{arch}/{shape}"] = rec
+    return out
+
+
+def framework_phase(args, dev) -> dict:
+    """Phase 15 (module docstring). Returns the kernels line's rows and the
+    phase's numbers."""
+    t0 = time.perf_counter()
+    pipe, pipe_row = pipeline_part(args, dev)
+    t1 = time.perf_counter()
+    spmd, spmd_row = spmd_part(args, dev)
+    t2 = time.perf_counter()
+    dry = dryrun_part()
+    print(f"  phase 15: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+          f"{time.perf_counter() - t2:.1f} s", flush=True)
+    return {"kernel_rows": [pipe_row, spmd_row],
+            "framework": {"pipeline": pipe, "sharded_step": spmd, "dryrun": dry}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size", type=int, default=8192,
@@ -4004,6 +4429,11 @@ def main() -> int:
     perf = perf_phase(args, dev)
     t0 = phase("14 perf sweep/resolve_fastest", t0)
     print(json.dumps({"perf": perf["perf"]}))
+
+    # ---- 15. the distribution layer: pipeline, sharded step, dry run -------
+    framework = framework_phase(args, dev)
+    t0 = phase("15 pipeline/sharded step/dry run", t0)
+    print(json.dumps({"framework": framework["framework"]}))
     print(f"total {time.perf_counter() - t_start:.1f} s; DEFAULT_NUM_MODULI "
           f"{DEFAULT_NUM_MODULI}", flush=True)
 
@@ -4017,7 +4447,7 @@ def main() -> int:
                                   for row in (main, k2_main, *long_rows, *unfused_rows,
                                               serve["k2_row"], families["k2_row"],
                                               *train["k1_rows"], *dist["kernel_rows"],
-                                              perf["k1_row"])]}))
+                                              perf["k1_row"], *framework["kernel_rows"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

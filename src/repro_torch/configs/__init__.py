@@ -2,8 +2,8 @@
 ``repro/configs/__init__.py``): ``get_config(arch, variant)`` resolves an
 ``--arch`` id to its ``ModelConfig``, published widths (``"full"``) or the
 reduced smoke variant. The config files are plain data, copied from the
-reference. The JAX dry-run input specs (``configs/shapes.py``) are not
-ported."""
+reference; ``shapes`` holds the dry run's input shapes, with meta-device
+input specs."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +13,7 @@ from repro_torch.models.config import ModelConfig
 from . import (codeqwen1p5_7b, deepseek_v3_671b, gemma2_27b, internvl2_26b,
                mamba2_2p7b, moonshot_v1_16b_a3b, qwen2_7b,
                seamless_m4t_medium, starcoder2_15b, zamba2_1p2b)
+from .shapes import SHAPES, ShapeSpec, applicable, input_specs
 
 _MODULES = {
     "internvl2-26b": internvl2_26b,
@@ -35,4 +36,5 @@ def get_config(arch: str, variant: str = "full", **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config"]
+__all__ = ["ARCHS", "ModelConfig", "get_config", "SHAPES", "ShapeSpec", "applicable",
+           "input_specs"]

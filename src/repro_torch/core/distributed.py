@@ -47,6 +47,7 @@ import torch
 from repro_torch.precision.policy import OZAKI2_FAMILY, PrecisionPolicy
 
 from . import crt, numerics, quantize, scaling
+from .collectives import collective, reduce_ranks
 from .moduli import DEFAULT_NUM_MODULI, ModuliSet, make_moduli_set
 from .plan import (QuantizedMatrix, ozmm_prepared, plan_from_wire, plan_to_wire, pow2_tables,
                    quantize_matrix, residue_products, wire_bytes)
@@ -133,16 +134,6 @@ def k_shard_residues(a_loc: torch.Tensor, b_loc: torch.Tensor, lmu: torch.Tensor
             for l, (p, sq, s) in enumerate(zip(ms.ps, ms.is_square, ms.split_s))]
 
 
-def reduce_ranks(parts: list[torch.Tensor], op, device) -> torch.Tensor:
-    """An explicit all-reduce: ``op`` (``torch.add`` for a psum,
-    ``torch.maximum`` for a pmax) folded over the ranks' tensors in
-    ascending rank order, on ``device``."""
-    acc = parts[0].to(device)
-    for t in parts[1:]:
-        acc = op(acc, t.to(device))
-    return acc
-
-
 def k_sharded_exponents(a_sh: list[torch.Tensor], b_sh: list[torch.Tensor], k: int,
                         ms: ModuliSet, mode: str, device) -> tuple[torch.Tensor, torch.Tensor]:
     """The global scale exponents (lmu, lnu) of a k-sharded pairing from the
@@ -212,13 +203,15 @@ def argmax_allreduce(vals, idxs, mesh, axis: str) -> tuple[float, int]:
                          f"({size}), got {vals.shape}/{idxs.shape}")
     devs = mesh.axis_devices(axis)
     root = devs[0]
-    v = torch.stack([torch.tensor(float(x), dtype=torch.float64, device=d).to(root)
-                     for x, d in zip(vals, devs)])
-    i = torch.stack([torch.tensor(int(x), dtype=torch.int64, device=d).to(root)
-                     for x, d in zip(idxs, devs)])
-    m = v.max()
-    win = torch.where(v == m, i, torch.full_like(i, _INT32_MAX)).min()
-    m, win = torch.stack((m, win.to(torch.float64))).tolist()
+    with collective("all-reduce") as done:
+        v = torch.stack([torch.tensor(float(x), dtype=torch.float64, device=d).to(root)
+                         for x, d in zip(vals, devs)])
+        i = torch.stack([torch.tensor(int(x), dtype=torch.int64, device=d).to(root)
+                         for x, d in zip(idxs, devs)])
+        m = v.max()
+        win = torch.where(v == m, i, torch.full_like(i, _INT32_MAX)).min()
+        m, win = torch.stack((m, win.to(torch.float64))).tolist()
+        done(v.element_size() + i.element_size())
     return float(m), int(win)
 
 

@@ -1,6 +1,7 @@
 """A single-controller device mesh (the torch counterpart of
-``repro/launch/mesh.py``'s ``make_mesh`` / ``GRID_AXES`` / ``make_grid_mesh``
-and of the ``jax.sharding.Mesh`` they build).
+``repro/launch/mesh.py``: ``make_mesh``, the production and host meshes,
+``use_mesh``, ``GRID_AXES`` / ``make_grid_mesh``, and the
+``jax.sharding.Mesh`` they build).
 
 One process drives every rank: a ``Mesh`` is a tuple of axis names and an
 object array of ``torch.device``s, one per rank, and the distributed code
@@ -8,10 +9,12 @@ runs each rank's work on its rank's device and reduces the ranks' tensors
 explicitly (``core.distributed``). Unlike a JAX mesh, a ``Mesh`` may repeat
 a device: a 2 x 4 mesh whose eight entries are all ``cuda:0`` runs every
 rank on one card, and on four cards the same code spreads the ranks over
-``cuda:0-3``.
+``cuda:0-3``. The dry run repeats ``torch.device("meta")`` over the
+production mesh's 256 or 512 ranks (the reference's fake host devices).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -81,6 +84,41 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], devices=None) -> Me
     arr = np.empty(len(devs), dtype=object)
     arr[:] = devs
     return Mesh(arr.reshape(shape), axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """Single pod: (16, 16) over ("data", "model"), 256 ranks. Multi-pod:
+    (2, 16, 16) over ("pod", "data", "model"), 512 ranks; the pod axis
+    composes with "data" for DP (``distribution.sharding`` folds them)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices)
+
+
+def make_host_mesh(data: int = 2, model: int = 4, devices=None) -> Mesh:
+    """A small ("data", "model") mesh for tests (``devices="cpu"`` or
+    ``"meta"`` repeats one device)."""
+    return make_mesh((data, model), ("data", "model"), devices)
+
+
+_AMBIENT: list[Mesh] = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Mesh):
+    """Ambient-mesh context (the reference's ``use_mesh``, which feeds JAX's
+    sharding context); ``current_mesh`` reads it inside. Nothing in the port
+    reads it: its meshes are passed as arguments."""
+    _AMBIENT.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.pop()
+
+
+def current_mesh() -> Mesh | None:
+    """The innermost ``use_mesh`` mesh, or None outside every one."""
+    return _AMBIENT[-1] if _AMBIENT else None
 
 
 def make_grid_mesh(nprow: int, npcol: int, devices=None) -> Mesh:

@@ -34,14 +34,32 @@ def frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 # ---------------------------------------------------------------- init utils
+class _MetaDraws:
+    """The generator of an init on the ``meta`` device, where
+    ``torch.Generator`` cannot live: shapes and dtypes, no draws."""
+
+    device = torch.device("meta")
+
+
+META_DRAWS = _MetaDraws()
+
+
+def randn(gen, shape) -> torch.Tensor:
+    """Standard normal draws from ``gen`` on its device (``META_DRAWS``:
+    an empty meta tensor)."""
+    if gen is META_DRAWS:
+        return torch.empty(shape, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                scale: float | None = None) -> torch.Tensor:
     scale = scale if scale is not None else d_in ** -0.5
-    return (torch.randn((d_in, d_out), generator=gen, device=gen.device) * scale).to(dtype)
+    return (randn(gen, (d_in, d_out)) * scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
-    return (torch.randn((vocab, d), generator=gen, device=gen.device) * 0.02).to(dtype)
+    return (randn(gen, (vocab, d)) * 0.02).to(dtype)
 
 
 def zeros(n: int, dtype, device) -> torch.Tensor:

@@ -36,7 +36,8 @@ from .attention import AttnTemporal
 from .blocks import (GLOBAL_WINDOW, Block, StageSpec, block_apply, block_init, stage_apply,
                      stage_init, stage_windows)
 from .config import ModelConfig, validate
-from .layers import dtype_of, embed_init, frozen, matmul, rmsnorm, softcap, zeros
+from .layers import (META_DRAWS, dtype_of, embed_init, frozen, matmul, randn, rmsnorm, softcap,
+                     zeros)
 from .ssm import init_ssm_state
 
 
@@ -139,15 +140,20 @@ class Model:
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
-    def init(self, generator: torch.Generator) -> CausalLM:
+    def init(self, generator: torch.Generator | None = None) -> CausalLM:
         """Parameters drawn from ``generator``, which lives on the model's
-        device. The draws are not the reference's (``jax.random``)."""
-        if generator.device.type != self.device.type:
-            raise ValueError(f"generator on {generator.device}, model on {self.device}")
+        device. The draws are not the reference's (``jax.random``). On the
+        ``meta`` device (the dry run) no generator can live: ``init`` takes
+        none and makes empty leaves of the same shapes and dtypes."""
+        if self.device.type == "meta" and generator is None:
+            generator = META_DRAWS
+        elif generator is None or generator.device.type != self.device.type:
+            raise ValueError(f"generator on {getattr(generator, 'device', None)}, "
+                             f"model on {self.device}")
         cfg, pd, gen, dev = self.cfg, self.param_dtype, generator, self.device
 
         def normal(shape, scale):
-            return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(pd)
+            return (randn(gen, shape) * scale).to(pd)
 
         embed = embed_init(gen, cfg.padded_vocab, cfg.d_model, pd)
         stages = nn.ModuleList(stage_init(gen, cfg, e.spec, pd) for e in self.stages)

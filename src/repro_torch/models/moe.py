@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ModelConfig
-from .layers import MLP, activation, dense_init, frozen, matmul, mlp_apply, mlp_init
+from .layers import MLP, activation, dense_init, frozen, matmul, mlp_apply, mlp_init, randn
 
 
 class MoEOutput(NamedTuple):
@@ -39,10 +39,9 @@ class MoE(nn.Module):
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> MoE:
     d, ff, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
-    dev = gen.device
 
     def stack(shape, scale):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+        return (randn(gen, shape) * scale).to(dtype)
 
     shared = (mlp_init(gen, d, cfg.moe_d_ff * cfg.num_shared_experts, dtype)
               if cfg.num_shared_experts else None)

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ModelConfig
-from .layers import dense_init, frozen, matmul, rmsnorm
+from .layers import dense_init, frozen, matmul, randn, rmsnorm
 
 
 class SSMState(NamedTuple):
@@ -44,7 +44,7 @@ def mamba2_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Mamba2:
     f32 = dict(dtype=torch.float32, device=dev)
     return Mamba2(
         dense_init(gen, d, 2 * dil + 2 * n + h, dtype),  # [z (dil), xBC (dil + 2n), dt (h)]
-        (torch.randn((cfg.conv_width, conv_ch), generator=gen, device=dev) * 0.1).to(dtype),
+        (randn(gen, (cfg.conv_width, conv_ch)) * 0.1).to(dtype),
         torch.zeros((conv_ch,), dtype=dtype, device=dev),
         torch.zeros((h,), **f32),  # A = -exp(A_log) = -1 init
         torch.ones((h,), **f32),

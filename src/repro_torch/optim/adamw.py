@@ -73,35 +73,47 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def step_scalars(cfg: AdamWConfig, step: torch.Tensor, gnorm: torch.Tensor):
+    """(lr, clip, bc1, bc2) of the step counted to ``step``, with the
+    gradient's global norm ``gnorm``."""
+    lr = schedule(cfg, step)
+    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    stepf = step.to(torch.float32)
+    return lr, clip, 1 - torch.pow(cfg.b1, stepf), 1 - torch.pow(cfg.b2, stepf)
+
+
+def leaf_update(cfg: AdamWConfig, p: torch.Tensor, m, v, g: torch.Tensor, scalars) -> None:
+    """One leaf's AdamW update, in place: ``p`` and its moments ``m``, ``v``
+    (f32 tensors, or Q8) from its gradient ``g``. Elementwise but for Q8's
+    blocks, so a block of a leaf takes the bits the whole leaf would."""
+    lr, clip, bc1, bc2 = scalars
+    g = g.to(torch.float32) * clip
+    q8 = isinstance(m, quantized.Q8)
+    m_new = cfg.b1 * (quantized.dequantize(m) if q8 else m) + (1 - cfg.b1) * g
+    v_new = (cfg.b2 * (quantized.dequantize(v, signed=False) if q8 else v)
+             + (1 - cfg.b2) * g * g)
+    upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
+    if p.dtype in (torch.float32, torch.float64, torch.bfloat16):
+        upd = upd + cfg.weight_decay * p.to(torch.float32)
+    p.copy_(p.to(torch.float32) - lr * upd)
+    if q8:
+        for dst, src in ((m, quantized.quantize(m_new)),
+                         (v, quantized.quantize(v_new, signed=False))):
+            dst.q.copy_(src.q)
+            dst.scale.copy_(src.scale)
+    else:
+        m.copy_(m_new)
+        v.copy_(v_new)
+
+
 def update(cfg: AdamWConfig, grads: dict, state: OptState, params: dict):
     """One AdamW step: ``params`` and the moments of ``state`` are updated
     in place and the step counted. Returns (params, state, {"grad_norm",
     "lr"})."""
     with torch.no_grad():
         state.step.add_(1)
-        lr = schedule(cfg, state.step)
         gnorm = global_norm(grads)
-        clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-        stepf = state.step.to(torch.float32)
-        bc1 = 1 - torch.pow(cfg.b1, stepf)
-        bc2 = 1 - torch.pow(cfg.b2, stepf)
+        scalars = step_scalars(cfg, state.step, gnorm)
         for k, g in grads.items():
-            p, m, v = params[k], state.m[k], state.v[k]
-            g = g.to(torch.float32) * clip
-            q8 = isinstance(m, quantized.Q8)
-            m_new = cfg.b1 * (quantized.dequantize(m) if q8 else m) + (1 - cfg.b1) * g
-            v_new = (cfg.b2 * (quantized.dequantize(v, signed=False) if q8 else v)
-                     + (1 - cfg.b2) * g * g)
-            upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
-            if p.dtype in (torch.float32, torch.float64, torch.bfloat16):
-                upd = upd + cfg.weight_decay * p.to(torch.float32)
-            p.copy_(p.to(torch.float32) - lr * upd)
-            if q8:
-                for dst, src in ((m, quantized.quantize(m_new)),
-                                 (v, quantized.quantize(v_new, signed=False))):
-                    dst.q.copy_(src.q)
-                    dst.scale.copy_(src.scale)
-            else:
-                m.copy_(m_new)
-                v.copy_(v_new)
-    return params, state, {"grad_norm": gnorm, "lr": lr}
+            leaf_update(cfg, params[k], state.m[k], state.v[k], g, scalars)
+    return params, state, {"grad_norm": gnorm, "lr": scalars[0]}

@@ -21,7 +21,7 @@ from typing import Any, NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.core.distributed import reduce_ranks
+from repro_torch.core.collectives import reduce_ranks
 
 from . import quantized
 

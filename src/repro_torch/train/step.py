@@ -54,6 +54,39 @@ def loss_fn(model: Model, params: CausalLM, batch: dict) -> tuple[torch.Tensor, 
     return loss, metrics
 
 
+def grads_of(model: Model, params: CausalLM, leaves: dict, batch: dict):
+    """The gradient of ``loss_fn`` with respect to ``leaves`` (name ->
+    parameter of ``params``), and the detached metrics."""
+    loss, metrics = loss_fn(model, params, batch)
+    # a leaf the loss does not reach gets zeros, as under jax.grad
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True,
+                                materialize_grads=True)
+    return dict(zip(leaves, grads)), {k: v.detach() for k, v in metrics.items()}
+
+
+def batch_grads(model: Model, params: CausalLM, leaves: dict, batch: dict,
+                microbatches: int = 1):
+    """``grads_of`` over ``microbatches`` leading splits of ``batch`` (tensors
+    on the model's device), summed in order from zero and divided, as the
+    reference's ``lax.scan`` does; the metrics are the last microbatch's.
+    The single-device step and each data rank of the sharded step
+    (``distribution.spmd``) run this."""
+    if microbatches == 1:
+        return grads_of(model, params, leaves, batch)
+    grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for k, p in leaves.items()}
+    for i in range(microbatches):
+        mb = {k: v.reshape(microbatches, v.shape[0] // microbatches, *v.shape[1:])[i]
+              for k, v in batch.items()}
+        g, metrics = grads_of(model, params, leaves, mb)
+        for k, gk in g.items():
+            grads[k] = grads[k] + gk
+        del g
+    for gk in grads.values():
+        gk.div_(microbatches)
+    return grads, metrics
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig, microbatches: int = 1,
                     policy=None):
     """Returns (init_state, step): ``init_state(generator)`` draws the
@@ -74,31 +107,11 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, microbatches: int = 1,
         params = model.init(generator).requires_grad_(True)
         return TrainState(params, opt_init(opt_cfg, reference_leaves(params)))
 
-    def grads_of(params: CausalLM, leaves: dict, batch: dict):
-        loss, metrics = loss_fn(model, params, batch)
-        # a leaf the loss does not reach gets zeros, as under jax.grad
-        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True,
-                                    materialize_grads=True)
-        return dict(zip(leaves, grads)), {k: v.detach() for k, v in metrics.items()}
-
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
         leaves = reference_leaves(state.params)
         with use_policy(pol):
-            if microbatches == 1:
-                grads, metrics = grads_of(state.params, leaves, batch)
-            else:
-                grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                         for k, p in leaves.items()}
-                for i in range(microbatches):
-                    mb = {k: v.reshape(microbatches, v.shape[0] // microbatches,
-                                       *v.shape[1:])[i] for k, v in batch.items()}
-                    g, metrics = grads_of(state.params, leaves, mb)
-                    for k, gk in g.items():
-                        grads[k] = grads[k] + gk
-                    del g
-                for gk in grads.values():
-                    gk.div_(microbatches)
+            grads, metrics = batch_grads(model, state.params, leaves, batch, microbatches)
             _, opt, om = opt_update(opt_cfg, grads, state.opt, leaves)
         return TrainState(state.params, opt), {**metrics, **om}
 

@@ -25,20 +25,11 @@ from repro.models import Model as RefModel
 from repro_torch.configs import get_config
 from repro_torch.models import Model, params_from_reference
 
+from _torch_threads import one_torch_thread  # noqa: F401 (re-exported)
+
 ARCH = "qwen2-7b"
 #: Logits of the model paths: |port - reference| <= LOGIT_RTOL * max|reference|.
 LOGIT_RTOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side of these tests is many small tensor ops, which run
-    several times slower on a pool of threads per test worker (the suite
-    runs one worker per core); one thread for the module, then restored."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def smoke_pair(gemm=None):

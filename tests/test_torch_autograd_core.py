@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 from _torch_parity import operands, port_grads, reference_grads
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("spec", ["ozaki2-fp8/fast@6", "ozaki2-fp8/accurate@6",

@@ -20,6 +20,7 @@ from repro_torch.core.moduli import make_moduli_set
 from repro_torch.kernels import common, ozmm_fused_raw_ref, requant_garner_plain
 
 from _torch_parity import operands, port_grads, reference_grads
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_f32_inputs_get_f32_gradients_bitwise():

@@ -23,6 +23,7 @@ from repro_torch.core import numerics as tnum
 from repro_torch.core import scaling as tscal
 
 from _torch_parity import assert_both_routes_match_reference, operands
+from _torch_threads import one_torch_thread  # noqa: F401
 
 FAMILY_SIZES = [(fam, n) for fam, top in jmod.DEFAULT_NUM_MODULI.items()
                 for n in range(2, top + 1)]

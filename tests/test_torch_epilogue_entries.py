@@ -27,6 +27,8 @@ from repro_torch.core import numerics, scaling
 from repro_torch.core.moduli import make_moduli_set
 from repro_torch.core.plan import pow2_tables
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 FAMILIES = [("fp8-hybrid", 12), ("fp8-karatsuba", 13), ("int8", 14)]
 
 

@@ -23,6 +23,7 @@ from repro_torch.kernels.fused import kernel as fused_kernel
 from repro_torch.precision import parse_policy
 
 from _torch_parity import FakeCudaTensor
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(x):

@@ -24,6 +24,7 @@ from repro_torch.kernels.fused import kernel as fused_kernel
 from repro_torch.precision import parse_policy
 
 from _torch_parity import PRIME_ISH, operands
+from _torch_threads import one_torch_thread  # noqa: F401
 
 #: Moduli counts cut to keep the interpreter's compiles short (one per
 #: family: fast and accurate share theirs); fp8@7 is 6 square moduli and

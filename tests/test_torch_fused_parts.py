@@ -32,6 +32,7 @@ from repro_torch.kernels import fused, stack_parts
 from repro_torch.kernels.fused import kernel as fused_kernel
 
 from _torch_parity import PRIME_ISH, SCHEME, FakeCudaTensor, operands
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TILE = fused.KERNEL_TILE
 

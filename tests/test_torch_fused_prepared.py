@@ -22,6 +22,7 @@ from repro_torch import ozmm, prepare_operand
 from repro_torch.kernels import fused
 
 from _torch_parity import PRIME_ISH, SCHEME, operands
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("family", ["fp8-hybrid", "fp8-karatsuba", "int8"])

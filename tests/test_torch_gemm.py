@@ -23,6 +23,7 @@ from repro_torch.precision import (parse_policy, resolve_policy, set_default_pol
                                    use_policy)
 
 from _torch_parity import SCHEME
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SPECS = ["ozaki2-fp8", "ozaki2-fp8/accurate@8", "ozaki2-int8/fast",
          "ozaki2-karatsuba/accurate@5+core+nocache", "ozaki1-fp8/accurate@11",

@@ -14,6 +14,8 @@ import pytest
 import repro.linalg as jax_linalg
 from repro_torch import linalg
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 CPU = "cpu"
 
 

@@ -41,7 +41,11 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.linalg.dist, repro_torch.optim.compress, repro_torch.perf, "
             "repro_torch.perf.sweep, repro_torch.perf.model, repro_torch.perf.trajectory, "
             "repro_torch.perf.rows, repro_torch.perf.fingerprint, repro_torch.testing, "
-            "repro_torch.precision.fastest; "
+            "repro_torch.precision.fastest, repro_torch.configs.shapes, "
+            "repro_torch.core.collectives, repro_torch.distribution, "
+            "repro_torch.distribution.sharding, repro_torch.distribution.spmd, "
+            "repro_torch.distribution.pipeline, repro_torch.distribution.op_cost, "
+            "repro_torch.launch.dryrun; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
     env = {**os.environ, "PYTHONPATH": str(PORT.parent)}

@@ -35,6 +35,8 @@ from repro_torch.kernels import fused
 from repro_torch.linalg import blocks
 from repro_torch.precision import parse_policy
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 CPU = "cpu"
 #: The parity tests' policy: 7 moduli (6 square, 1 Karatsuba: both
 #: residue-product schedules). Port and reference run the same policy, so

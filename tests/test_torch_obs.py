@@ -26,6 +26,7 @@ from repro_torch.obs import export, health, metrics, trace
 from repro_torch.precision import PrecisionPolicy
 
 from _torch_parity import FakeCudaTensor
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture
@@ -53,20 +54,24 @@ def tracing_on():
 
 
 def test_gemm_metric_snapshot_equals_reference(both_metrics_on):
+    """The reference records a GEMM call at host level, once a trace
+    (repro/obs/metrics.py, record_gemm_call), so its calls run under
+    jax.eval_shape: the same records, no compile."""
     rng = np.random.default_rng(0)
     a, b = rng.standard_normal((8, 16)), rng.standard_normal((16, 8))
     a3, b3 = rng.standard_normal((2, 8, 16)), rng.standard_normal((2, 16, 8))
     for spec in ("ozaki2-fp8/fast@6", "ozaki2-int8/accurate@8", "ozaki2-karatsuba/fast@5",
                  "native", "ozaki1-fp8/fast@4"):
-        jax_ozmm(a, b, spec)
+        jax.eval_shape(lambda x, y: jax_ozmm(x, y, spec), a, b)
         ozmm(a, b, spec, device="cpu")
-    jax_ozmm(a3, b3, "ozaki2-fp8/accurate@6")
+    jax.eval_shape(lambda x, y: jax_ozmm(x, y, "ozaki2-fp8/accurate@6"), a3, b3)
     ozmm(a3, b3, "ozaki2-fp8/accurate@6", device="cpu")
-    jax_ozmm(jax_prepare_operand(a, "lhs", "ozaki2-fp8/fast@6"), b, "ozaki2-fp8/fast@6")
+    jax.eval_shape(lambda x, y: jax_ozmm(jax_prepare_operand(x, "lhs", "ozaki2-fp8/fast@6"), y,
+                                         "ozaki2-fp8/fast@6"), a, b)
     ozmm(prepare_operand(a, "lhs", "ozaki2-fp8/fast@6", device="cpu"), b, "ozaki2-fp8/fast@6")
     # forward + backward: the call counts once, the backward records nothing
-    jax.grad(lambda x, y: jnp.sum(jax_ozmm(x, y, "ozaki2-fp8/accurate@7")),
-             argnums=(0, 1))(jnp.asarray(a), jnp.asarray(b))
+    jax.eval_shape(jax.grad(lambda x, y: jnp.sum(jax_ozmm(x, y, "ozaki2-fp8/accurate@7")),
+                            argnums=(0, 1)), jnp.asarray(a), jnp.asarray(b))
     ta, tb = (torch.from_numpy(x).requires_grad_() for x in (a, b))
     ozmm(ta, tb, "ozaki2-fp8/accurate@7", device="cpu").sum().backward()
     assert ta.grad is not None

@@ -14,6 +14,7 @@ from repro_torch import ozmm
 from repro_torch.core import ozaki1
 
 from _torch_parity import operands, port_grads, reference_grads
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _norm_err(c, a, b) -> float:

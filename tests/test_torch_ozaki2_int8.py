@@ -4,6 +4,7 @@ int8 family (ozaki2-int8) at its default moduli, on both routes (core, and
 import pytest
 
 from _torch_parity import PRIME_ISH, assert_both_routes_match_reference, operands
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("mode", ["fast", "accurate"])

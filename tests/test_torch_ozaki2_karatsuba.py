@@ -4,6 +4,7 @@ routes (core, and '+pallas' -> the fused kernel's plain version)."""
 import pytest
 
 from _torch_parity import PRIME_ISH, assert_both_routes_match_reference, operands
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("mode", ["fast", "accurate"])

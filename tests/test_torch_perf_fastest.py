@@ -29,6 +29,8 @@ from repro_torch.perf.fingerprint import (device_platform, fingerprint_fresh,
 from repro_torch.precision import parse_policy
 from repro_torch.testing import lognormal_matrix
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 TIERS = (1e-4, 1e-8, 1e-12)
 BUCKET = shape_bucket(64, 64, 64)
 

@@ -22,6 +22,7 @@ from repro_torch import kernels as kn
 from repro_torch.core.moduli import DEFAULT_NUM_MODULI
 
 from _torch_parity import PRIME_ISH, SCHEME, operands
+from _torch_threads import one_torch_thread  # noqa: F401
 
 #: 7 hybrid moduli: 6 square (eq. (12)) and 1 Karatsuba (eq. (8)).
 HYBRID = "ozaki2-fp8/{mode}@7"

@@ -28,6 +28,7 @@ from repro_torch.kernels.fp8_gemm import kernel as k3_module
 from repro_torch.kernels.quant_residues import kernel as k6_module
 
 from _torch_parity import FakeCudaTensor
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _bytes(x) -> np.ndarray:

@@ -21,6 +21,7 @@ from repro_torch.kernels.fp8_gemm import residue_gemm_route
 from repro_torch.kernels.fused import transpose_parts
 
 from _torch_parity import PRIME_ISH, FakeCudaTensor, operands
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _bytes(t: torch.Tensor) -> np.ndarray:

@@ -30,6 +30,8 @@ from repro_torch.data import DataConfig, PrefetchingLoader, synth_batch
 from repro_torch.models.layers import matmul
 from repro_torch.runtime import StragglerWatchdog, elastic_mesh_shape, retry, retry_jitter
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 DATA_ARCHS = ("qwen2-7b", "internvl2-26b", "seamless-m4t-medium")  # dense, vlm, encdec
 RTOL = 1e-6
 
@@ -235,6 +237,20 @@ def test_checkpoint_retention_and_restore_step(tmp_path):
     _assert_tree_equal(restored, _tree(3))
     with pytest.raises(ValueError, match="leaf count"):
         mgr.restore({"a": torch.zeros(4, 6)})
+
+
+def test_checkpoint_restore_pairs_leaves_by_name(tmp_path):
+    """Leaves pair with the checkpoint's by name, whatever their order: a
+    target whose leaves the checkpoint does not name raises, naming the
+    first, though the counts and shapes agree."""
+    mgr = CheckpointManager(str(tmp_path), async_save=False)
+    x, y = torch.randn(3, 3, generator=torch.Generator().manual_seed(0)), torch.zeros(3, 3)
+    mgr.save(1, {"wq": x, "wo": y})
+    target = {"wo": torch.ones(3, 3), "wq": torch.ones(3, 3)}
+    _, restored = mgr.restore(target)
+    assert torch.equal(restored["wq"], x) and torch.equal(restored["wo"], y)
+    with pytest.raises(ValueError, match=r"\['wk'\]: no such leaf"):
+        mgr.restore({"wk": torch.ones(3, 3), "wo": torch.ones(3, 3)})
 
 
 def test_checkpoint_async_save_copies_now_and_idempotent_resave(tmp_path):
