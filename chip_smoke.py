@@ -12,6 +12,8 @@
         argparse.Namespace(seed=0), torch.device("cuda"))'  # phase 14 alone
     python3 -c 'import chip_smoke as c, torch, argparse; c.framework_phase(
         argparse.Namespace(seed=0), torch.device("cuda"))'  # phase 15 alone
+    python3 -c 'import chip_smoke as c, torch, argparse; c.analysis_phase(
+        argparse.Namespace(seed=0, size=8192), torch.device("cuda"))'  # phase 16 alone
 
 Phases, each printing its elapsed time; any failed check raises and the
 script exits non-zero without printing a result:
@@ -327,6 +329,25 @@ script exits non-zero without printing a result:
    (1024 x 3584 x 18944) and at (b)'s lm_head input gradient for a data
    rank of (2, 2) (256 x 152064 x 3584), each against its plain version,
    timed beside its bound and cuBLAS DGEMM.
+16. analysis (repro_torch.analysis): (a) the RPL rule pack over
+   src/repro_torch finds nothing new against the packaged baseline (its
+   astlint section is empty). (b) the graph checker runs the nine registry
+   entries on the card: nothing new against the baseline's graph section;
+   each ozmm entry launches K1 once (two prologues); each entry is traced
+   again on the CPU under the route the card took ("+pallas" for the ozmm
+   entries: K1's plain version), and the two traces' findings outside the
+   kernel scopes are equal, and each K1 node's input and output dtypes and
+   shapes equal those of its plain-version scope. (c) ozmm at the main-path
+   size under ozaki2-fp8/accurate, ozaki2-fp8/fast and ozaki2-int8/fast,
+   traced: one K1 launch each; the findings equal (b)'s for the same entry
+   with the shapes set aside; C bitwise equal to the untraced call; the
+   traced and untraced ms (median of 3 on the host clock). (d) planted
+   faults, each found on the card and its fixed twin clean: an f64 -> f32
+   cast on an output path (RPJ001), an f32 mm with TF32 switched on and
+   restored after (RPJ001), an int32 mul -> add (RPJ002), an in-place
+   argument copied instead of written (RPJ003), a float index_add_ on a
+   bitwise entry (RPJ004). K1 at (c)'s shape under ozaki2-fp8/accurate
+   against its plain version, timed beside its bound and cuBLAS DGEMM.
 
 The last two lines are the card (nvidia-smi name, power limit) and
 {"ok": true, "device": {...}}; before them a {"kernels": [...]} line, whose
@@ -334,8 +355,9 @@ rows are the main path's kernels and then each phase's rows (6b's: K1 at
 the long contraction, K1 and K2 in digits mode; 12's: K1 at (a)'s and
 (d)'s lm_head input gradients); then K1, K2, K3, K4 and K6 at phase 13's
 shard shapes, with (a)'s launches; K1 at phase 14's decode shape, with
-the sweep's K1 launches; the last two are K1 at phase 15's (a) and (b)
-shapes, with their launches.
+the sweep's K1 launches; K1 at phase 15's (a) and (b) shapes, with their
+launches; the last is K1 at phase 16's (c) shape, with phase 16's K1
+launches ((b) and (c)).
 """
 from __future__ import annotations
 
@@ -3960,6 +3982,195 @@ def framework_phase(args, dev) -> dict:
             "framework": {"pipeline": pipe, "sharded_step": spmd, "dryrun": dry}}
 
 
+#: Phase 16 (c): the full-width traced ozmm calls, each with the registry
+#: entry whose findings it must repeat.
+ANALYSIS_SPECS = {"ozaki2-fp8/accurate": "ozmm[fp8-accurate]", "ozaki2-fp8/fast": "ozmm[fp8-fast]",
+                  "ozaki2-int8/fast": "ozmm[int8-fast]"}
+
+
+def _no_shape(keys) -> set:
+    """Finding keys with their trailing shape cut off."""
+    return {k.rsplit(":", 1)[0] for k in keys}
+
+
+def planted_faults(dev) -> dict:
+    """Phase 16 (d): each planted fault's finding on the card, beside its
+    fixed twin, which must find nothing."""
+    import torch
+
+    from repro_torch.analysis import check_fn
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    x = torch.randn((64, 64), generator=gen, device=dev, dtype=torch.float64)
+    a32, b32 = x.float(), x.t().contiguous().float()
+    i32 = torch.randint(-100, 100, (64, 64), generator=gen, device=dev, dtype=torch.int32)
+    idx = torch.tensor([1, 1, 3], device=dev)
+    switch = torch.backends.cuda.matmul
+
+    def tf32_mm(on: bool):
+        prev = switch.allow_tf32
+        switch.allow_tf32 = on
+        try:
+            return check_fn("planted", lambda a, b: torch.mm(a, b), (a32, b32))
+        finally:
+            switch.allow_tf32 = prev
+
+    def copied(pool, vals):  # the update lands in a copy of the pool
+        new = pool.clone()
+        new[idx[:2]] = vals
+        return new
+
+    def written(pool, vals):
+        pool[idx[:2]] = vals
+        return pool
+
+    cases = {
+        "RPJ001:convert:float64->float32:64x64": (
+            lambda: check_fn("planted", lambda x: (x.float() * 2).double(), (x,)),
+            lambda: check_fn("planted", lambda x: x * 2.0, (x,))),
+        "RPJ001:dot_general:float32->tf32:64x64": (lambda: tf32_mm(True), lambda: tf32_mm(False)),
+        "RPJ002:mul->add:int32:64x64": (
+            lambda: check_fn("planted", lambda a, b: a * b + a, (i32, i32)),
+            lambda: check_fn("planted", lambda a, b: a.long() * b.long() + a.long(), (i32, i32))),
+        "RPJ003:unused-donated:0": (
+            lambda: check_fn("planted", copied, (x.clone(), x[:2].clone()), inplace=(0,)),
+            lambda: check_fn("planted", written, (x.clone(), x[:2].clone()), inplace=(0,))),
+        "RPJ004:scatter-add:float64:64x64": (
+            lambda: check_fn("planted", lambda t, v: t.index_add_(0, idx, v),
+                             (x.clone(), x[:3].clone()), bitwise=True),
+            lambda: check_fn("planted", lambda t, v: t.index_add_(0, idx, v),
+                             (i32.clone(), i32[:3].clone()), bitwise=True)),
+    }
+    out = {}
+    for sig, (fault, twin) in cases.items():
+        found = [f.signature for f in fault()]
+        clean = [f.signature for f in twin()]
+        check(found == [sig], f"(d) planted {sig}: the checker found {found}")
+        check(clean == [], f"(d) the fixed twin of {sig}: the checker found {clean}")
+        check(not switch.allow_tf32, "(d) the TF32 switch was left on")
+        out[sig] = found
+    print(f"  (d) planted faults found on the card, fixed twins clean: {sorted(out)}", flush=True)
+    return out
+
+
+def analysis_phase(args, dev) -> dict:
+    """Phase 16 (module docstring). Returns the kernels line's row and the
+    phase's numbers."""
+    import torch
+
+    from repro_torch import ozmm
+    from repro_torch.analysis import (DEFAULT_BASELINE, ENTRY_POINTS, check_trace, lint_paths,
+                                      load_baseline, new_findings, trace_entry, trace_fn)
+    from repro_torch.kernels.fused import ozmm_fused_raw, raw_parts
+
+    t0 = time.perf_counter()
+    data = load_baseline(DEFAULT_BASELINE)
+    # (a) the AST layer over the port's tree
+    findings = lint_paths([ROOT / "src" / "repro_torch"])
+    new = new_findings(findings, data, "astlint")
+    check(data["astlint"] == [] and not new,
+          "(a) new AST findings: " + "; ".join(f.render() for f in new))
+    print(f"  (a) RPL rule pack over src/repro_torch: {len(findings)} findings, 0 new", flush=True)
+    t1 = time.perf_counter()
+
+    # (b) the registry on the card, each entry beside its CPU twin
+    check(not torch.backends.cuda.matmul.allow_tf32, "(b) the TF32 switch is on")
+    entries, k1_b = {}, 0
+    for entry in ENTRY_POINTS:
+        ozmm_fused_raw.launches = raw_parts.launches = 0
+        card = trace_entry(entry, dev)
+        torch.cuda.synchronize()
+        launched = ozmm_fused_raw.launches
+        want = int(entry.name.startswith("ozmm["))
+        check(launched == want and raw_parts.launches == 2 * want,
+              f"(b) {entry.name}: K1 launched {launched} times (prologue "
+              f"{raw_parts.launches}), predicted {want}")
+        k1_b += launched
+        card_f = check_trace(entry.name, card, bitwise=entry.bitwise)
+        new = new_findings(card_f, data, "graph")
+        check(not new, f"(b) {entry.name}: new findings on the card: "
+                       + "; ".join(f.render() for f in new))
+        cpu = trace_entry(entry, "cpu", "+pallas" if want else "")
+        cpu_f = check_trace(entry.name, cpu, bitwise=entry.bitwise)
+        outside = [sorted(f.key for f in fs if f.scope is None) for fs in (card_f, cpu_f)]
+        check(outside[0] == outside[1], f"(b) {entry.name}: card {outside[0]} vs CPU "
+                                        f"{outside[1]} outside the kernel scopes")
+        check([(s.name, s.launched) for s in card.scopes] == [("ozmm_fused_raw", True)] * want
+              and [(s.name, s.launched) for s in cpu.scopes] == [("ozmm_fused_raw", False)] * want,
+              f"(b) {entry.name}: scopes card {card.scopes}, CPU {cpu.scopes}")
+        for k, p in zip(card.scopes, cpu.scopes):
+            check((k.in_types, k.out_types) == (p.in_types, p.out_types),
+                  f"(b) {entry.name}: the K1 node {k} vs its plain-version scope {p}")
+        entries[entry.name] = {"findings": sorted(f.signature for f in card_f),
+                               "k1_launches": launched,
+                               "kernel_nodes": [[k.name, len(k.in_types), k.out_types]
+                                                for k in card.scopes]}
+        print(f"  (b) {entry.name}: {len(card_f)} findings on the card, all baselined; "
+              f"{len(cpu_f)} on the CPU twin ({len(outside[1])} outside the kernel scopes, "
+              f"equal to the card's); K1 launches {launched}", flush=True)
+    t2 = time.perf_counter()
+
+    # (c) the main path at full width, traced
+    big = args.size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 16)
+    a, b = lognormal(gen, (big, big), 0.5, dev), lognormal(gen, (big, big), 0.5, dev)
+    ozmm_fused_raw.launches = raw_parts.launches = 0
+    traces = {spec: trace_fn(lambda a, b, spec=spec: ozmm(a, b, spec, device=dev), (a, b))
+              for spec in ANALYSIS_SPECS}
+    torch.cuda.synchronize()
+    k1_c = ozmm_fused_raw.launches
+    check(k1_c == len(ANALYSIS_SPECS) and raw_parts.launches == 2 * k1_c,
+          f"(c) {k1_c} K1 launches for {len(ANALYSIS_SPECS)} traced ozmm calls")
+    full = {}
+    for spec, tr in traces.items():
+        name = ANALYSIS_SPECS[spec]
+        keys = {f.key for f in check_trace(name, tr, bitwise=True)}
+        check(_no_shape(keys) == _no_shape(f"{name}:{s}" for s in entries[name]["findings"]),
+              f"(c) {spec} at {big}^3: findings {sorted(keys)}, (b) {entries[name]['findings']}")
+        check_equal(tr.result, ozmm(a, b, spec, device=dev), f"(c) {spec}: traced vs untraced C")
+
+        def timed(traced: bool, spec=spec) -> float:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            if traced:
+                trace_fn(lambda a, b: ozmm(a, b, spec, device=dev), (a, b))
+            else:
+                ozmm(a, b, spec, device=dev)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - start) * 1e3
+
+        times = {"traced": [], "untraced": []}
+        for _ in range(3):  # in turns
+            times["untraced"].append(timed(False))
+            times["traced"].append(timed(True))
+        full[spec] = {"findings": sorted(k.split(":", 1)[1] for k in keys),
+                      "traced_ms": statistics.median(times["traced"]),
+                      "untraced_ms": statistics.median(times["untraced"])}
+        print(f"  (c) {spec} {big}^3 traced: {sorted(keys)} (= (b)'s, shapes aside); C bitwise "
+              f"equal to the untraced call; traced {full[spec]['traced_ms']:.2f} ms, untraced "
+              f"{full[spec]['untraced_ms']:.2f} ms (median of 3, host clock)", flush=True)
+        del tr
+    del traces
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+
+    # (d) planted faults
+    planted = planted_faults(dev)
+    t4 = time.perf_counter()
+    print(f"  phase 16: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s, "
+          f"(d) {t4 - t3:.1f} s; K1 launches (b) {k1_b} (8x16x8), (c) {k1_c} (at the row's "
+          f"shape)", flush=True)
+    row = k1_train_row(a, b, k1_c, spec="ozaki2-fp8/accurate", what="phase 16 (c)'s shape")
+    del a, b
+    torch.cuda.empty_cache()
+    return {"k1_row": row, "analysis": {
+        "ast_findings": len(findings), "entries": entries, "full_width": full,
+        "planted": planted, "k1_launches": {"b": k1_b, "c": k1_c},
+        "seconds": {"a": t1 - t0, "b": t2 - t1, "c": t3 - t2, "d": t4 - t3}}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size", type=int, default=8192,
@@ -4434,6 +4645,11 @@ def main() -> int:
     framework = framework_phase(args, dev)
     t0 = phase("15 pipeline/sharded step/dry run", t0)
     print(json.dumps({"framework": framework["framework"]}))
+
+    # ---- 16. analysis: the rule pack, the graph checker on the card --------
+    analysis = analysis_phase(args, dev)
+    t0 = phase("16 analysis", t0)
+    print(json.dumps({"analysis": analysis["analysis"]}))
     print(f"total {time.perf_counter() - t_start:.1f} s; DEFAULT_NUM_MODULI "
           f"{DEFAULT_NUM_MODULI}", flush=True)
 
@@ -4447,7 +4663,8 @@ def main() -> int:
                                   for row in (main, k2_main, *long_rows, *unfused_rows,
                                               serve["k2_row"], families["k2_row"],
                                               *train["k1_rows"], *dist["kernel_rows"],
-                                              perf["k1_row"], *framework["kernel_rows"])]}))
+                                              perf["k1_row"], *framework["kernel_rows"],
+                                              analysis["k1_row"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -347,7 +347,7 @@ def backend_matmul(a, b, policy=None, preferred_dtype: torch.dtype | None = None
         a, b = (torch.as_tensor(x, device=dev) for x in (a, b))
         if preferred_dtype is not None:
             a, b = a.to(preferred_dtype), b.to(preferred_dtype)
-        return torch.matmul(a, b)
+        return torch.matmul(a, b)  # reprolint: disable=RPL005(native policy: the backend's product, both operands cast to preferred_dtype above when given)
     if a_prep or b_prep:
         for q in (a, b):
             if isinstance(q, QuantizedMatrix):

@@ -25,7 +25,8 @@ import torch
 from repro_torch.core import crt
 from repro_torch.core.moduli import ModuliSet
 
-from ..launch import MODULI_TAIL, bind, check_moduli, check_tensors, moduli_tail, raise_on_error
+from ..launch import (MODULI_TAIL, bind, check_moduli, check_tensors, kernel_scope, moduli_tail,
+                      raise_on_error)
 
 
 def requant_garner_plain(cparts, *, ms: ModuliSet, lmu: torch.Tensor | None = None,
@@ -52,6 +53,7 @@ def _load() -> ctypes.CDLL:
                 + MODULI_TAIL)
 
 
+@kernel_scope("requant_garner")
 def requant_garner(cparts, *, ms: ModuliSet, lmu: torch.Tensor | None = None,
                    lnu: torch.Tensor | None = None) -> torch.Tensor:
     """From ``cparts`` ((c1, c2, c3) float32 stacks (N, m, n) for the fp8

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.core import numerics
 
-from ..launch import bind, check_tensors, raise_on_error, stream
+from ..launch import bind, check_tensors, kernel_scope, raise_on_error, stream
 
 _MAX_K = 2 ** 16
 _MAX_K_INT8 = 2 ** 17
@@ -124,6 +124,7 @@ def reset_counts(kernel) -> None:
     kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
+@kernel_scope("fp8_gemm")
 def fp8_gemm(a: torch.Tensor, b: torch.Tensor, *, out: torch.Tensor | None = None):
     """C = A @ B for e4m3 A (m, k), B (k, n) K-major or contiguous, as
     float32 (m, n), written into ``out`` when given. CUDA tensors run the

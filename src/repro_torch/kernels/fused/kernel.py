@@ -38,7 +38,7 @@ from repro_torch.core.moduli import POW2_TABLE_LEN, ModuliSet
 from repro_torch.core.plan import residue_products
 
 from ..common import resolve_reconstruct, stack_parts
-from ..launch import (MAX_MODULI, MODULI_TAIL, bind, check_tensors, moduli_tail,
+from ..launch import (MAX_MODULI, MODULI_TAIL, bind, check_tensors, kernel_scope, moduli_tail,
                       raise_on_error, stream)
 
 MANT_SPLIT = 26  # raw frame: mant = mh * 2^26 + ml (ops.decompose_raw)
@@ -341,6 +341,7 @@ def _empty_parts(ms: ModuliSet, shape, dev) -> tuple:
                  for _ in range(1 if ms.family == "int8" else 3))
 
 
+@kernel_scope("raw_parts")
 def raw_parts(mh, ml, e, lexp, tbl, *, ms: ModuliSet, axis: int):
     """K1's residue prologue: the K-major part stacks of one operand from its
     raw frames (``raw_parts_plain`` has the layout). CUDA tensors run the
@@ -367,6 +368,7 @@ def raw_parts(mh, ml, e, lexp, tbl, *, ms: ModuliSet, axis: int):
 raw_parts.launches = 0
 
 
+@kernel_scope("transpose_parts")
 def transpose_parts(sb, *, ms: ModuliSet):
     """K2's B transpose: (N, k, n) part stacks (``stack_parts`` layout) to
     K-major (N, n, k), square moduli's hs planes left unwritten. CUDA
@@ -411,6 +413,7 @@ def gemm_core(kernel: str, pa, pb, lmu, lnu, *, ms: ModuliSet,
     return res if digits else out
 
 
+@kernel_scope("ozmm_fused_raw")
 def ozmm_fused_raw(mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl, *,
                    ms: ModuliSet, reconstruct: str = "onchip") -> torch.Tensor:
     """Fused emulated GEMM from raw frames, (m, n) float64, or with
@@ -438,6 +441,7 @@ def ozmm_fused_raw(mh_a, ml_a, e_a, lmu, mh_b, ml_b, e_b, lnu, tbl, *,
 ozmm_fused_raw.launches = 0
 
 
+@kernel_scope("ozmm_fused_parts")
 def ozmm_fused_parts(sa, sb, lmu, lnu, *, ms: ModuliSet,
                      reconstruct: str = "onchip") -> torch.Tensor:
     """Fused emulated GEMM from stacked residue parts (``stack_parts``

@@ -24,6 +24,7 @@ import torch
 from repro_torch.core import numerics
 
 from ..fp8_gemm.kernel import reset_counts, residue_gemm
+from ..launch import kernel_scope
 
 
 def int8_gemm_plain(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None):
@@ -37,6 +38,7 @@ def int8_gemm_plain(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None =
 int8_gemm_plain.calls = 0
 
 
+@kernel_scope("int8_gemm")
 def int8_gemm(a: torch.Tensor, b: torch.Tensor, *, out: torch.Tensor | None = None):
     """C = A @ B for int8 A (m, k), B (k, n) K-major or contiguous, as int32
     (m, n), written into ``out`` when given. CUDA tensors run the kernel (or

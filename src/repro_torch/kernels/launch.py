@@ -5,11 +5,22 @@ and the stream, and raise on a launch error.
 A wrapper checks its inputs and then takes its plain version only for CPU
 tensors; for CUDA tensors it launches the kernel or raises. There is no
 fallback on a failed build or launch.
+
+A kernel launched through ``ctypes`` is not an aten op, so a
+``TorchDispatchMode`` sees only the ``torch.empty`` of its outputs. While a
+graph recorder traces (``repro_torch.analysis.graph_check``, in
+``RECORDERS``), every wrapper, decorated with ``kernel_scope`` under its
+kernel's name, reports each call as a scope (on CPU tensors the scope holds
+its plain version), and ``raise_on_error`` marks the open scope as
+launched: the recorder then makes the call one node from its input tensors
+to its output tensors. With no recorder active the decorator costs one list
+test a call.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -21,6 +32,32 @@ from .build import load_library
 KIND_SQUARE, KIND_KARATSUBA, KIND_INT8 = 0, 1, 2  # fused_common.cuh
 #: MAXN of csrc/fused_common.cuh: the moduli parameter block's capacity.
 MAX_MODULI = 20
+
+
+#: Graph recorders while they trace, innermost last; each has
+#: ``enter_scope(name, args, kwargs)``, ``exit_scope(name, out)`` and
+#: ``launched()``.
+RECORDERS: list = []
+
+
+def kernel_scope(name: str) -> Callable:
+    """Decorator of a kernel wrapper, under the kernel's ``name``: while a
+    recorder traces, a call is a scope of it."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not RECORDERS:
+                return fn(*args, **kwargs)
+            rec = RECORDERS[-1]
+            rec.enter_scope(name, args, kwargs)
+            out = None
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                rec.exit_scope(name, out)
+            return out
+        return call
+    return deco
 
 
 def check_tensors(kernel: str, named) -> torch.device:
@@ -90,6 +127,10 @@ def stream(dev: torch.device) -> int:
 
 
 def raise_on_error(kernel: str, lib: ctypes.CDLL, err: int) -> None:
+    """Raise on a failed launch; after a launch that succeeded, tell the
+    active recorder that the open scope launched its kernel."""
     if err:
         raise RuntimeError(f"{kernel}: launch failed with CUDA error {err} "
                            f"({lib.cuda_error_string(err).decode()})")
+    if RECORDERS:
+        RECORDERS[-1].launched()

@@ -30,7 +30,8 @@ from repro_torch.core import numerics, quantize
 from repro_torch.core.moduli import POW2_TABLE_LEN, ModuliSet
 
 from ..common import stack_parts
-from ..launch import MODULI_TAIL, bind, check_moduli, check_tensors, moduli_tail, raise_on_error
+from ..launch import (MODULI_TAIL, bind, check_moduli, check_tensors, kernel_scope, moduli_tail,
+                      raise_on_error)
 from .ref import MANT_SPLIT, decompose_int
 
 
@@ -86,6 +87,7 @@ def _launch(kernel: str, inputs, tbl, shape, axis: int, ms: ModuliSet, dev: torc
     return outs[0] if int8 else outs
 
 
+@kernel_scope("quant_residues")
 def quant_residues(mh, ml, e, tbl, *, ms: ModuliSet):
     """Part stacks (N, m, k) of the frame mh, ml, e (int32 (m, k)) under the
     tables ``tbl`` (int32 (N, 1024)): (hi, lo, hs) e4m3 for the fp8
@@ -107,6 +109,7 @@ def quant_residues(mh, ml, e, tbl, *, ms: ModuliSet):
 quant_residues.launches = 0
 
 
+@kernel_scope("quant_residues_f64")
 def quant_residues_f64(a, lscale, tbl, *, ms: ModuliSet, axis: int = 0):
     """Part stacks (N, m, k) of trunc(2^lscale * a) for the f64 operand ``a``
     (m, k) and its log2 scales ``lscale`` (int32), per row (``axis=0``, m

@@ -87,7 +87,7 @@ def matmul(x: torch.Tensor, w, policy=None, out_dtype=None) -> torch.Tensor:
     else:
         wa = plan_source(w) if isinstance(w, QuantizedMatrix) else w
         # native: accumulate in the layer compute dtype, as the reference does
-        y = torch.matmul(x2, wa.to(x2.dtype))
+        y = torch.matmul(x2, wa.to(x2.dtype))  # reprolint: disable=RPL005(native policy: accumulates in x2's compute dtype, as the reference's native matmul)
     return y.reshape(*lead, w.shape[-1]).to(out_dtype)
 
 

@@ -45,7 +45,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.core.collectives, repro_torch.distribution, "
             "repro_torch.distribution.sharding, repro_torch.distribution.spmd, "
             "repro_torch.distribution.pipeline, repro_torch.distribution.op_cost, "
-            "repro_torch.launch.dryrun; "
+            "repro_torch.launch.dryrun, repro_torch.analysis, repro_torch.analysis.graph_check, "
+            "repro_torch.analysis.registry, repro_torch.analysis.cli; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}))")
     env = {**os.environ, "PYTHONPATH": str(PORT.parent)}
