@@ -14,6 +14,8 @@
         argparse.Namespace(seed=0), torch.device("cuda"))'  # phase 15 alone
     python3 -c 'import chip_smoke as c, torch, argparse; c.analysis_phase(
         argparse.Namespace(seed=0, size=8192), torch.device("cuda"))'  # phase 16 alone
+    python3 -c 'import chip_smoke as c, torch, argparse; c.examples_phase(
+        argparse.Namespace(seed=0), torch.device("cuda"))'  # phase 17 alone
 
 Phases, each printing its elapsed time; any failed check raises and the
 script exits non-zero without printing a result:
@@ -269,7 +271,7 @@ script exits non-zero without printing a result:
    bitwise equal to the single-device lu_factor, K2 (plans) or K1 (f64)
    launches as predicted,
    bytes on the wire, the time by stage. (c) run_hpl_dist under
-   ozaki2-fp8/accurate at n = --hpl-n, 2 x 2: the HPL gate, K1 launches as
+   ozaki2-fp8/accurate at n = --hpl-n / 2, 2 x 2: the HPL gate, K1 launches as
    predicted (trailing updates, the solves' rank GEMMs, the refinement
    residuals' rank matvecs), seconds, GFLOP/s and the split by stage beside
    phase 7's single-device run.
@@ -348,6 +350,27 @@ script exits non-zero without printing a result:
    argument copied instead of written (RPJ003), a float index_add_ on a
    bitwise entry (RPJ004). K1 at (c)'s shape under ozaki2-fp8/accurate
    against its plain version, timed beside its bound and cuBLAS DGEMM.
+17. the example drivers (examples/torch_*.py), each through its
+   main(argv) in this process on the card: torch_quickstart (its defaults;
+   every Ozaki-II row on K1, Ozaki-I on core, '+pallas' == '+core'
+   bitwise), torch_hpl_lu at its defaults (n = 768, native and fp8 / int8
+   accurate) and with --grid 2x2 --n 1000 for fp8 fast and accurate,
+   torch_serve_demo for qwen2-7b and mamba2-2.7b (smoke configs, native),
+   torch_serve_continuous at its defaults (qwen2-7b smoke, ozaki2-fp8/fast,
+   two accuracy classes, an oversized request rejected) and for mamba2-2.7b
+   under native, torch_fp64_train --profile paper (~100M parameters, 200
+   native f32 steps of 8 x 256 tokens with checkpoints, then the FP64-grade
+   gates of 12 (b) on the emulated f64 forward), torch_check_pipeline; each
+   run to its own OK, with its drivers' own assertions. Checks: each run's
+   K1/K2 launches (2 prologues a K1, a transpose a K2; K3-K6 never) as
+   predicted from the driver's code and arguments (the serving drivers: a
+   model call's GEMMs, from the config, times the calls the run made); K1
+   and K2 at their first call of every distinct input shape of every run
+   bitwise against their plain versions; the seconds of each run. K1 at
+   fp64_train's f64 lm_head (2048 x 768 x 32000, ozaki2-fp8/accurate) and
+   K2 at serve_continuous' decode lm_head (4 x 128 x 512, m padded to
+   128), each against its plain version, timed beside its bound and
+   cuBLAS DGEMM.
 
 The last two lines are the card (nvidia-smi name, power limit) and
 {"ok": true, "device": {...}}; before them a {"kernels": [...]} line, whose
@@ -356,8 +379,9 @@ the long contraction, K1 and K2 in digits mode; 12's: K1 at (a)'s and
 (d)'s lm_head input gradients); then K1, K2, K3, K4 and K6 at phase 13's
 shard shapes, with (a)'s launches; K1 at phase 14's decode shape, with
 the sweep's K1 launches; K1 at phase 15's (a) and (b) shapes, with their
-launches; the last is K1 at phase 16's (c) shape, with phase 16's K1
-launches ((b) and (c)).
+launches; K1 at phase 16's (c) shape, with phase 16's K1 launches ((b)
+and (c)); the last two are K1 and K2 at phase 17's shapes, with phase
+17's launches.
 """
 from __future__ import annotations
 
@@ -3029,6 +3053,12 @@ DIST_MESH = (2, 4)
 #: (b): the fast LU's grid; the ragged case's grid, at half the other's n
 #: less 48 (2000 = 15 x 128 + 80 at the default size).
 DIST_GRID, DIST_RAGGED = (2, 2), (48, (4, 1))
+#: (c): run_hpl_dist's n is --hpl-n over this share. At n = 8192 it took
+#: 54.87 s of a 1,027 s run (H100 80GB HBM3, 700.00 W); at half that n it
+#: pays for phase 17, which drives the same entry point through
+#: examples/torch_hpl_lu.py --grid 2x2, while phase 7 keeps accurate HPL at
+#: --hpl-n.
+DIST_HPL_SHARE = 2
 DIST_FAST, DIST_ACCURATE = "ozaki2-fp8/fast", "ozaki2-fp8/accurate"
 #: The 8-row sample of (a)'s accurate gates, held against a long-double product.
 GATE_ROWS = 8
@@ -3321,10 +3351,8 @@ def dist_lu_phase(args, dev, hpl_rows) -> dict:
         del a, lu_s
 
     # (c) the distributed HPL, accurate mode, beside phase 7's single-device run
-    P, Q = DIST_GRID
-    solves = 2  # refine_steps=1: the solve and one refinement solve
-    k1_want = (dist_lu_updates(hn, HPL_BLOCK, P, Q)
-               + solves * dist_solve_gemms(hn, HPL_BLOCK, P) + 2 * P * Q)
+    hn = args.hpl_n // DIST_HPL_SHARE
+    k1_want, _ = dist_hpl_launches(DIST_ACCURATE, hn, HPL_BLOCK, *DIST_GRID)
     zero_counts()
     with CallTotals(dlu, "pivot_argmax", events=False) as t_piv, \
             CallTotals(dgrid, "argmax_allreduce", events=False) as t_red, \
@@ -3348,7 +3376,7 @@ def dist_lu_phase(args, dev, hpl_rows) -> dict:
                       refine_s=res["epilogue_seconds"] - res["solve_seconds"],
                       refine_history=res["refine_history"],
                       single_device=single and {k: single[k] for k in
-                                                ("seconds", "gflops", "scaled_residual")})
+                                                ("n", "seconds", "gflops", "scaled_residual")})
     t = res["timings"]
     print(f"  dist HPL {DIST_ACCURATE} n={hn} block {HPL_BLOCK} {res['grid']}: {secs:.2f} s; "
           f"factor {res['factor_seconds']:.2f} s (panel {t['panel']:.2f}, of it pivot search "
@@ -3360,7 +3388,8 @@ def dist_lu_phase(args, dev, hpl_rows) -> dict:
           f"{out['hpl']['solve_gemms_s']:.2f}); {res['gflops']:.2f} GFLOP/s by HPL's count "
           f"(factor + solve); scaled residual {res['scaled_residual']:.3e}; wire "
           f"{res['wire_bytes']} B + epilogue {res['epilogue_wire_bytes']} B; launches {counts} "
-          "as predicted" + (f"; phase 7 single-device: {single['seconds']:.2f} s, "
+          "as predicted" + (f"; phase 7 single-device (n={single['n']}): "
+                            f"{single['seconds']:.2f} s, "
                             f"{single['gflops']:.2f} GFLOP/s, residual "
                             f"{single['scaled_residual']:.3e}" if single else ""), flush=True)
     return out
@@ -4171,6 +4200,210 @@ def analysis_phase(args, dev) -> dict:
         "seconds": {"a": t1 - t0, "b": t2 - t1, "c": t3 - t2, "d": t4 - t3}}}
 
 
+#: Phase 17: the port's example drivers (examples/torch_*.py), each run in
+#: this process through its main(argv) on the card, in this order. The
+#: fp64_train run's checkpoints go to EXAMPLE_CKPT, removed before and after.
+EXAMPLE_RUNS = (
+    ("torch_quickstart", []),
+    ("torch_hpl_lu", []),
+    ("torch_hpl_lu", ["--grid", "2x2", "--n", "1000", "--policies", "ozaki2-fp8/fast",
+                      "ozaki2-fp8/accurate"]),
+    ("torch_serve_demo", ["--arch", "qwen2-7b"]),
+    ("torch_serve_demo", ["--arch", "mamba2-2.7b"]),
+    ("torch_serve_continuous", []),
+    ("torch_serve_continuous", ["--arch", "mamba2-2.7b", "--gemm", "native"]),
+    ("torch_fp64_train", ["--profile", "paper"]),
+    ("torch_check_pipeline", []),
+)
+EXAMPLE_CKPT = ROOT / "experiments" / "chip_smoke_fp64_train"
+
+
+def example_module(name: str):
+    """examples/<name>.py as a module (the folder is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def hpl_launches(spec: str, n: int, block: int) -> tuple[int, int]:
+    """(K1, K2) launches of run_hpl(n, spec, block=block, refine_steps=1):
+    per LU solve nb(nb-1)/2 TRSM folds each way, nb - 1 trailing updates;
+    refine_steps=1 solves twice and takes two accurate residuals (unprepared
+    ozmm: K1). Fast plans fold on K2; accurate pairs run on K1."""
+    from repro_torch.precision import parse_policy
+
+    if spec == "native":
+        return 0, 0
+    nb = -(-n // block)
+    pairings = (nb - 1) + 2 * nb * (nb - 1)
+    return (2, pairings) if parse_policy(spec).mode == "fast" else (pairings + 2, 0)
+
+
+def dist_hpl_launches(spec: str, n: int, block: int, P: int, Q: int) -> tuple[int, int]:
+    """(K1, K2) launches of run_hpl_dist(n, spec, grid=(P, Q), block=block,
+    refine_steps=1): the trailing updates' and both solves' rank GEMMs (K2
+    on fast plans, K1 on accurate pairs), and each rank's matvec of the two
+    accurate refinement residuals (K1)."""
+    from repro_torch.precision import parse_policy
+
+    if spec == "native":
+        return 0, 0
+    gemms = dist_lu_updates(n, block, P, Q) + 2 * dist_solve_gemms(n, block, P)
+    residuals = 2 * P * Q
+    return (residuals, gemms) if parse_policy(spec).mode == "fast" else (gemms + residuals, 0)
+
+
+class ModelCalls:
+    """Counts the serving calls (prefill waves, decode steps) of every Model
+    while in the block."""
+
+    NAMES = ("prefill", "prefill_slots", "decode_step", "decode_slots")
+
+    def __enter__(self):
+        from repro_torch.models import model as model_mod
+
+        self.cls, self.count, self.orig = model_mod.Model, 0, {}
+        for name in self.NAMES:
+            fn = self.orig[name] = getattr(self.cls, name)
+
+            def counted(*a, _fn=fn, **kw):
+                self.count += 1
+                return _fn(*a, **kw)
+
+            setattr(self.cls, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.cls, name, fn)
+
+
+def predicted_example_launches(mod, argv: list, model_calls: int) -> tuple[int, int]:
+    """(K1, K2) launches one example driver's run makes on the card, worked
+    out from the driver's code and its arguments; ``model_calls`` is the
+    serving calls the run made (ModelCalls), for the serving drivers."""
+    from repro_torch.configs import get_config
+    from repro_torch.linalg.dist import parse_grid
+
+    name = mod.__name__
+    ns = mod.parser().parse_args(argv) if hasattr(mod, "parser") else None
+    if name == "torch_quickstart":
+        # every Ozaki-II row (fast and accurate) on auto, resolve_for's spec,
+        # the '+pallas' product; Ozaki-I and the '+core' context on core
+        rows = sum(2 for base, _ in mod.SPECS if base.startswith("ozaki2"))
+        return rows + 2, 0
+    if name == "torch_hpl_lu":
+        per = [dist_hpl_launches(spec, ns.n, ns.block, *parse_grid(ns.grid)) if ns.grid
+               else hpl_launches(spec, ns.n, ns.block) for spec in ns.policies]
+        return sum(k1 for k1, _ in per), sum(k2 for _, k2 in per)
+    if name == "torch_serve_continuous":
+        if ns.gemm == "native":
+            return 0, 0
+        # each call: the cached weights' GEMMs on K2, a tied lm_head raw on K1
+        cached, raw = family_gemms(get_config(ns.arch, "smoke"))
+        return raw * model_calls, cached * model_calls
+    if name == "torch_fp64_train":
+        # native f32 training; then every GEMM of the native f64 forward
+        # emulated on its operands, the emulated logits from the native
+        # final hidden state, and the emulated model's own forward (all raw)
+        return 2 * sum(family_gemms(mod.model_cfg(ns.profile))) + 1, 0
+    if name == "torch_serve_demo":
+        check(get_config(ns.arch, "smoke").gemm is None,
+              "serve_demo's smoke config sets a policy")
+    return 0, 0  # serve_demo (native), check_pipeline (f32 torch.matmul)
+
+
+def examples_phase(args, dev) -> dict:
+    """Phase 17 (module docstring): the example drivers on the card. Returns
+    the kernels line's rows (K1 at fp64_train's lm_head, K2 at
+    serve_continuous' decode lm_head, each with the phase's launches) and
+    the phase's numbers."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import quantize_matrix
+    from repro_torch.kernels.fused import ops, ozmm_fused_parts_ref, ozmm_fused_raw_ref
+    from repro_torch.precision import parse_policy
+
+    get_counts, zero_counts = serve_counters()
+    runs, totals = [], {"K1": 0, "K2": 0}
+    for name, argv in EXAMPLE_RUNS:
+        mod = example_module(name)
+        if name == "torch_fp64_train":
+            shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+            argv = argv + ["--ckpt-dir", str(EXAMPLE_CKPT)]
+        zero_counts()
+        with CheckFirstCallPerShape(ops, "ozmm_fused_raw", ozmm_fused_raw_ref,
+                                    f"{name}: K1 vs plain version") as c1, \
+                CheckFirstCallPerShape(ops, "ozmm_fused_parts", ozmm_fused_parts_ref,
+                                       f"{name}: K2 vs plain version") as c2, \
+                ModelCalls() as calls:
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            out = mod.main(argv + ["--device", str(dev)])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - ts
+        counts = get_counts()
+        k1, k2 = predicted_example_launches(mod, argv, calls.count)
+        want = {k: 0 for k in counts}
+        want.update({"K1": k1, "K1 prologue": 2 * k1, "K2": k2, "K2 transpose": k2})
+        what = " ".join([name] + argv)
+        check(counts == want, f"{what}: launches {counts}, predicted {want}")
+        if name == "torch_quickstart":
+            check(out["pallas_equals_core"] and out["pallas_route"] == "K1",
+                  f"quickstart: +pallas ({out['pallas_route']}) vs +core not bitwise equal")
+            check([r["route"] for r in out["rows"]]
+                  == ["K1" if r["spec"].startswith("ozaki2") else "core" for r in out["rows"]],
+                  f"quickstart: routes {[r['route'] for r in out['rows']]}")
+        if name == "torch_fp64_train":
+            shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+            fp64 = {k: out[k] for k in ("gemms", "gemm_of_bound", "lm_head_of_bound",
+                                        "logit_dev", "forward_logit_dev",
+                                        "forward_logits_equal")}
+            fp64["losses"] = [out["losses"][0], out["losses"][-1]]
+            fp64["step_s_median"] = statistics.median(out["step_seconds"])
+        totals["K1"] += k1
+        totals["K2"] += k2
+        runs.append({"driver": what, "seconds": secs, "launches": {"K1": k1, "K2": k2},
+                     "model_calls": calls.count, "k1_shapes": len(c1.shapes),
+                     "k2_shapes": len(c2.shapes)})
+        print(f"  [example] {what}: {secs:.1f} s; launches K1 {k1} (prologue {2 * k1}), "
+              f"K2 {k2} (transpose {k2}), others 0, as predicted; K1 at {len(c1.shapes)} and "
+              f"K2 at {len(c2.shapes)} distinct input shapes == plain version (bitwise)",
+              flush=True)
+        del out
+        torch.cuda.empty_cache()
+
+    # the kernels line's rows at the drivers' shapes, with the phase's launches
+    fp = example_module("torch_fp64_train")
+    fa = fp.parser().parse_args([])
+    cfg = fp.model_cfg("paper")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 17)
+    h = torch.randn((fa.batch * fa.seq, cfg.d_model), generator=gen, device=dev,
+                    dtype=torch.float64)
+    w = torch.randn((cfg.d_model, cfg.padded_vocab), generator=gen, device=dev,
+                    dtype=torch.float64) * cfg.d_model ** -0.5
+    k1_row = k1_train_row(h, w, totals["K1"], spec=fp.EMULATED,
+                          what="fp64_train --profile paper's f64 lm_head")
+    del h, w
+    sc = example_module("torch_serve_continuous").parser().parse_args([])
+    smoke = get_config(sc.arch, "smoke")
+    w = torch.randn((smoke.d_model, smoke.padded_vocab), generator=gen, device=dev,
+                    dtype=torch.float32)
+    qb = quantize_matrix(w.double(), "rhs", parse_policy(SERVE_POLICY).moduli_set(), mode="fast")
+    k2_row = k2_lm_head_row(qb, w, sc.slots, gen, dev, totals["K2"])
+    del w, qb
+    torch.cuda.empty_cache()
+    return {"kernel_rows": [k1_row, k2_row],
+            "examples": {"runs": runs, "launches": totals, "fp64_train": fp64}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--size", type=int, default=8192,
@@ -4502,12 +4735,7 @@ def main() -> int:
     hpl_rows = []
     for spec, share in HPL_POLICIES.items():
         hn = args.hpl_n // share
-        nb = -(-hn // HPL_BLOCK)
-        # per LU solve, nb(nb-1)/2 TRSM folds each way; refine_steps=1 solves
-        # twice and takes two accurate residuals (unprepared ozmm: K1)
-        pairings = (nb - 1) + 2 * nb * (nb - 1)
-        expect = {"native": (0, 0), "ozaki2-fp8/fast": (2, pairings),
-                  "ozaki2-fp8/accurate": (pairings + 2, 0)}  # (K1, K2) launches
+        expect = hpl_launches(spec, hn, HPL_BLOCK)  # (K1, K2)
         with CallTotals(ops, "ozmm_fused_raw") as t1, \
                 CallTotals(ops, "ozmm_fused_parts") as t2, \
                 CallTotals(blas3, "backend_matmul") as tg, \
@@ -4553,8 +4781,8 @@ def main() -> int:
         print(f"  HPL {spec}: K1's prologue {steps[0]} launches, K2's transpose {steps[1]}; "
               f"K2 {per_k2:.3f} ms a launch", flush=True)
         check(res["passed"], f"HPL {spec}: scaled residual {res['scaled_residual']} > 16")
-        check(launches == expect[spec],
-              f"HPL {spec}: (K1, K2) launches {launches}, predicted {expect[spec]}")
+        check(launches == expect,
+              f"HPL {spec}: (K1, K2) launches {launches}, predicted {expect}")
         check(steps == (2 * launches[0], launches[1]),
               f"HPL {spec}: (prologue, transpose) launches {steps}, predicted "
               f"{(2 * launches[0], launches[1])}")
@@ -4650,6 +4878,11 @@ def main() -> int:
     analysis = analysis_phase(args, dev)
     t0 = phase("16 analysis", t0)
     print(json.dumps({"analysis": analysis["analysis"]}))
+
+    # ---- 17. the example drivers -------------------------------------------
+    examples = examples_phase(args, dev)
+    t0 = phase("17 examples", t0)
+    print(json.dumps({"examples": examples["examples"]}))
     print(f"total {time.perf_counter() - t_start:.1f} s; DEFAULT_NUM_MODULI "
           f"{DEFAULT_NUM_MODULI}", flush=True)
 
@@ -4664,7 +4897,8 @@ def main() -> int:
                                               serve["k2_row"], families["k2_row"],
                                               *train["k1_rows"], *dist["kernel_rows"],
                                               perf["k1_row"], *framework["kernel_rows"],
-                                              analysis["k1_row"])]}))
+                                              analysis["k1_row"],
+                                              *examples["kernel_rows"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

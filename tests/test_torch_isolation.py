@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: nothing under src/repro_torch (nor
-chip_smoke.py) imports JAX or the JAX package, and importing repro_torch
-leaves both out of sys.modules."""
+chip_smoke.py, nor the port's example drivers examples/torch_*.py) imports
+JAX or the JAX package, and importing repro_torch leaves both out of
+sys.modules."""
 import ast
 import os
 import subprocess
@@ -21,7 +22,9 @@ def _imported_modules(path: Path):
 
 
 def test_no_jax_or_repro_imports_in_the_port():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    drivers = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(drivers) == 6
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + drivers
     assert len(files) > 10
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imported_modules(f) if name.split(".")[0] in FORBIDDEN]
