@@ -75,9 +75,10 @@ script exits non-zero without printing a result:
    bitwise equal to ozmm.
 7. linalg on the card: run_hpl(n, policy, block=128, refine_steps=1) for
    native (cuBLAS DGEMM through the same driver) and ozaki2-fp8/fast (K2 on
-   every trailing update and TRSM fold) at n = --hpl-n / 2, and
-   ozaki2-fp8/accurate (K1 on the prepared pairs) at n = --hpl-n (phase
-   13's distributed HPL runs beside it), each scaled residual <= 16 and
+   every trailing update and TRSM fold) at n = --hpl-n / 4, and
+   ozaki2-fp8/accurate (K1 on the prepared pairs) at n = --hpl-n / 2 (the
+   n of phase 13's distributed HPL, which runs beside it), each scaled
+   residual <= 16 and
    each kernel's launch
    count (and its prologue's or transpose's) moving by the count the code
    predicts, with the time split between the kernels, the rest of the GEMM
@@ -181,8 +182,8 @@ script exits non-zero without printing a result:
    encoder-decoder and vlm), phase 10's model freed first. (a)
    moonshot-v1-16b-a3b at its published widths (d_model 2048, 16/16 heads x
    128, 64 experts top-6 of d_ff 1408 + 1 shared, dense first layer d_ff
-   11264, vocab 163840), cut to 3 of 48 layers (the dense layer and two MoE
-   layers), and (b) mamba2-2.7b at its published widths (d_model 2560,
+   11264, vocab 163840), cut to 2 of 48 layers (the dense layer and one MoE
+   layer), and (b) mamba2-2.7b at its published widths (d_model 2560,
    state 128, 80 heads x 64, chunk 128, tied embeddings), cut to 2 of 64
    layers; each with f32 weights from the seed and bf16 compute, through
    BatchingEngine("ozaki2-fp8/fast", 4 slots; paged with pages of 16 for
@@ -310,27 +311,36 @@ script exits non-zero without printing a result:
    microbatch (2 prologues each; K2-K6 never); wall time and peak memory.
    (b) make_sharded_train_step on qwen2-7b at full width, 1 of 28 layers,
    ozaki2-fp8/fast, a batch of 2 x 256 from synth_batch, from the state the
-   seed draws: on a (data 1, model 4) mesh of the card bitwise equal to the
-   single-device step (loss and every rank's block of the parameters and
-   moments); on (2, 2) the loss within 1e-4 of the single-device loss (the
-   reference's bound), the state after unshard_state and the loss bitwise
-   equal to the same function on one device (each data rank's gradient
-   by train.step.batch_grads, summed in rank order and divided, then
-   optim.update), and that mean gradient within 2e-2 of the whole batch's,
-   normwise in every leaf (bf16 compute rounds each data rank's gradient
-   on its own), where a planted fault (data rank 1's rows dropped) must
-   trip the same bound; the state's deviation from the single-device
-   step's printed, not gated (at step 1 AdamW moves each parameter by
-   ~lr sign(g)), with the share of it that sign flips make; K1 launched
-   as train_gemms reckons it for each data rank; each step's time beside
-   the single device's, and peak memory. (c) dryrun_cell("qwen2-7b", "train_4k") and
-   ("qwen2-7b", "decode_32k") on the 16 x 16 production mesh of meta
-   devices (nothing allocated, the card untouched): status "ok" and
-   flops_per_device equal to launch.dryrun.model_flops, the analytic count
-   of rank 0's program; the records printed. K1 at (a)'s MLP up-projection
-   (1024 x 3584 x 18944) and at (b)'s lm_head input gradient for a data
-   rank of (2, 2) (256 x 152064 x 3584), each against its plain version,
-   timed beside its bound and cuBLAS DGEMM.
+   seed draws, tensor-parallel over "model" (models.tensor_parallel:
+   column- and row-parallel GEMMs, attention head-local, the vocab-parallel
+   embedding, the gathered logits): on a (data 1, model 4) mesh of the card
+   bitwise equal to the single-device step (loss and every rank's block of
+   the parameters and moments); on (2, 2) the loss within 1e-4 of the
+   single-device loss (the reference's bound), the state after
+   unshard_state and the loss bitwise equal to the same function on one
+   device (each data rank's gradient by train.step.batch_grads, summed in
+   rank order and divided, then optim.update), and that mean gradient
+   within 2e-2 of the whole batch's, normwise in every leaf (bf16 compute
+   rounds each data rank's gradient on its own), where a planted fault
+   (data rank 1's rows dropped) must trip the same bound; the state's
+   deviation from the single-device step's printed, not gated (at step 1
+   AdamW moves each parameter by ~lr sign(g)), with the share of it that
+   sign flips make; the single-device step's K1 launches as train_gemms
+   reckons them, the sharded steps' K2 (mn blocks), K6 and K3 (k shards)
+   as tp_train_launches reckons them; each step's time beside the single
+   device's, and peak memory. (c) dryrun_cell("qwen2-7b", "train_4k"),
+   ("qwen2-7b", "decode_32k") (attention on gathered q/k/v: 4 kv heads on
+   16 model ranks) and ("gemma2-27b", "train_4k") (head-local: 32 / 16
+   heads) on the 16 x 16 production mesh of meta devices (nothing
+   allocated, the card untouched): status "ok", flops_per_device equal to
+   launch.dryrun.model_flops at model 16, the analytic count of rank 0's
+   tensor-parallel program, and every leaf the rules split over "model"
+   handed to that program as its block (none all-gathered over "model");
+   the records printed. K1 at (a)'s MLP up-projection (1024 x 3584 x
+   18944) and at the single-device step's lm_head input gradient (512 x
+   152064 x 3584), K2, K3 and K6 at their first shard shape in (b)'s
+   (1, 4) step, each against its plain version, timed beside its bound and
+   its library call (cuBLAS DGEMM for K1/K2, torch._scaled_mm for K3).
 16. analysis (repro_torch.analysis): (a) the RPL rule pack over
    src/repro_torch finds nothing new against the packaged baseline (its
    astlint section is empty). (b) the graph checker runs the nine registry
@@ -378,7 +388,8 @@ rows are the main path's kernels and then each phase's rows (6b's: K1 at
 the long contraction, K1 and K2 in digits mode; 12's: K1 at (a)'s and
 (d)'s lm_head input gradients); then K1, K2, K3, K4 and K6 at phase 13's
 shard shapes, with (a)'s launches; K1 at phase 14's decode shape, with
-the sweep's K1 launches; K1 at phase 15's (a) and (b) shapes, with their
+the sweep's K1 launches; K1 at phase 15's (a) and (b) shapes and K2, K3,
+K6 at (b)'s first tensor-parallel shard shapes, with their
 launches; K1 at phase 16's (c) shape, with phase 16's K1 launches ((b)
 and (c)); the last two are K1 and K2 at phase 17's shapes, with phase
 17's launches.
@@ -413,11 +424,12 @@ POLICIES = ("ozaki2-fp8/fast", "ozaki2-fp8/accurate", "ozaki2-karatsuba/fast",
 UNFUSED = "+pallas+unfused"
 #: Prepared (fast-mode) pairings run on K2.
 K2_POLICIES = ("ozaki2-fp8/fast", "ozaki2-karatsuba/fast", "ozaki2-int8/fast")
-#: Phase 7's HPL runs, each policy's n as a fraction of --hpl-n: the
-#: host-bound native and fast runs at half of it keep the whole run well
-#: inside its limit on a slow host (at n = 8192 they took 65 and 124 s on
-#: an H100 80GB HBM3, 700.00 W, whose host was slow).
-HPL_POLICIES = {"native": 2, "ozaki2-fp8/fast": 2, "ozaki2-fp8/accurate": 1}
+#: Phase 7's HPL runs, each policy's n as --hpl-n over the share: the
+#: host-bound runs are cut so that the whole run keeps ~300 s of its limit
+#: on a slow host (H100 80GB HBM3, 700.00 W: at --hpl-n / 2 native and fast
+#: took 13.7 and 27.3 s, accurate at --hpl-n 78.0 s, of a 1,042.6 s run);
+#: accurate runs at phase 13 (c)'s n.
+HPL_POLICIES = {"native": 4, "ozaki2-fp8/fast": 4, "ozaki2-fp8/accurate": 2}
 HPL_BLOCK = 128
 #: Timed runs of K1's plain version (~1.3 s each at 8192^3); 3 rather than 5
 #: keeps the whole run near half its time limit.
@@ -540,14 +552,23 @@ class FirstCallPerShape:
     its first call at each distinct set of input shapes, so that each can be
     held against the plain version after the run."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name, self.calls = module, name, {}
+    def __init__(self, module, name: str, keep: int | None = None):
+        self.module, self.name, self.calls, self.limit = module, name, {}, keep
+        self.shapes: set = set()
+
+    @property
+    def seen(self) -> int:
+        """The distinct input shapes called with, kept or not."""
+        return len(self.shapes)
 
     def __enter__(self):
         self.orig = fn = getattr(self.module, self.name)
 
         def keep(*a, **kw):
-            self.calls.setdefault(shapes_of(a), (a, kw))
+            key = shapes_of(a)
+            self.shapes.add(key)
+            if self.limit is None or len(self.calls) < self.limit:
+                self.calls.setdefault(key, (a, kw))
             return fn(*a, **kw)
 
         setattr(self.module, self.name, keep)
@@ -1986,7 +2007,7 @@ def serve_smoke_width(args, dev) -> dict:
 #: Phase 11: the other model families. moonshot-v1-16b-a3b (MoE) and
 #: mamba2-2.7b (SSM) at their published widths, depth cut to the layers
 #: below; then the smoke widths of the six configs of the families.
-FAMILY_FULL = (("moonshot-v1-16b-a3b", 3), ("mamba2-2.7b", 2))
+FAMILY_FULL = (("moonshot-v1-16b-a3b", 2), ("mamba2-2.7b", 2))
 FAMILY_ARCHS = ("deepseek-v3-671b", "moonshot-v1-16b-a3b", "mamba2-2.7b", "zamba2-1.2b",
                 "seamless-m4t-medium", "internvl2-26b", "gemma2-27b")
 #: Logits of runs that need not be bitwise (the tests' LOGIT_RTOL): |a - b|
@@ -3056,8 +3077,8 @@ DIST_GRID, DIST_RAGGED = (2, 2), (48, (4, 1))
 #: (c): run_hpl_dist's n is --hpl-n over this share. At n = 8192 it took
 #: 54.87 s of a 1,027 s run (H100 80GB HBM3, 700.00 W); at half that n it
 #: pays for phase 17, which drives the same entry point through
-#: examples/torch_hpl_lu.py --grid 2x2, while phase 7 keeps accurate HPL at
-#: --hpl-n.
+#: examples/torch_hpl_lu.py --grid 2x2; phase 7's accurate HPL runs at the
+#: same n.
 DIST_HPL_SHARE = 2
 DIST_FAST, DIST_ACCURATE = "ozaki2-fp8/fast", "ozaki2-fp8/accurate"
 #: The 8-row sample of (a)'s accurate gates, held against a long-double product.
@@ -3210,7 +3231,7 @@ def dist_gemm_phase(args, dev) -> tuple[list, dict]:
 
     # the kernels at their first shard shape, against their plain versions
     kernel_rows = []
-    one = torch.ones((), dtype=torch.float32, device=dev)
+    am, bm = a[:rb], b[:, :cb]
     firsts = {
         "K1": (c1, ozmm_fused_raw, ozmm_fused_raw_ref, "ozmm_fused_raw", "mn accurate",
                "src/repro_torch/csrc/fused_raw.cu", "src/repro/kernels/fused/kernel.py:238"),
@@ -3225,60 +3246,73 @@ def dist_gemm_phase(args, dev) -> tuple[list, dict]:
                "src/repro/kernels/quant_residues/kernel.py:77"),
     }
     for tag, (kept, kern, plain, name, case, source, replaces) in firsts.items():
-        n_shapes = len(kept.calls)
-        args_, kw = next(iter(kept.calls.values()))
-        kw = {k: v for k, v in kw.items() if k != "out"}  # K3/K4 write a product plane
-        got, ref = kern(*args_, **kw), plain(*args_, **kw)
-        outs_k = list(got) if isinstance(got, tuple) else [got]
-        outs_p = list(ref) if isinstance(ref, tuple) else [ref]
-        for g, r in zip(outs_k, outs_p):
-            check_equal(as_bytes(g), as_bytes(r), f"phase 13 {tag} at its shard shape vs plain")
-        err = max(max_abs_err(g, r) for g, r in zip(outs_k, outs_p))
-        del got, ref, outs_k, outs_p
-        torch.cuda.empty_cache()
-        ms_k = cuda_ms(lambda: kern(*args_, **kw))
-        ms_p = cuda_ms(lambda: plain(*args_, **kw), 3)
         ms_set = cases[case][1]
-        prods = ms_set.n if ms_set.family == "int8" else 3 * ms_set.n
-        if tag in ("K1", "K2"):
-            m, k, n = rb, big, cb
-            n_ops = prods * 2 * m * k * n
-            n_bytes = (sum(t.numel() * t.element_size() for t in args_ if hasattr(t, "numel"))
-                       + 8 * m * n) if tag == "K1" else part_bytes(ms_set, m, k, n)
-            am, bm = a[:m], b[:, :n]
-            lib = lambda: torch.matmul(am, bm)  # noqa: E731
-        elif tag in ("K3", "K4"):
-            x, y = args_[0], args_[1]
-            m, k, n = x.shape[0], x.shape[1], y.shape[1]
-            n_ops, n_bytes = 2 * m * k * n, m * k + k * n + 4 * m * n
-            if tag == "K4":
-                yc = y.contiguous()
-                lib = lambda: torch._int_mm(x, yc)  # noqa: E731
-            else:
-                lib = lambda: torch._scaled_mm(x, y, scale_a=one, scale_b=one,  # noqa: E731
-                                               out_dtype=torch.float32, use_fast_accum=False)
-        else:
-            m, k = args_[0].shape
-            n = None
-            n_ops, n_bytes = 0, (8 + 3 * ms_set.n) * m * k + 4 * m + 4 * ms_set.n * 1024
-            lib = None
-        ms_l = cuda_ms(lib) if lib else None
-        t_bytes, t_ops = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_FP8_OPS_PER_S * 1e3
-        row = {"name": name, "tag": tag, "phase": 13, "case": case,
-               "shape": [m, k] + ([n] if n else []), "route": "cuda", "source": source,
-               "replaces": replaces, "launches": launches[case].get(tag, 0), "max_abs_err": err,
-               "ms": ms_k, "plain_ms": ms_p, "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes > t_ops else "operations", "library_ms": ms_l,
-               "shapes_seen": n_shapes}
-        kernel_rows.append(row)
-        lib_txt = f"{ms_l:.3f} ms" if ms_l is not None else "none"
-        print(f"  {tag} {name} at {row['shape']} ({case}; {n_shapes} distinct input shapes): "
-              f"kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, library {lib_txt}, bound "
-              f"{row['bound_ms']:.3f} ms ({row['bound_by']}), launches {row['launches']}, "
-              f"== plain (bitwise)", flush=True)
-    del a, b
+        kernel_rows.append(first_call_row(
+            tag, kept, kern, plain, name, source, replaces, launches[case].get(tag, 0), ms_set,
+            13, case, mkn=(rb, big, cb) if tag in ("K1", "K2") else None,
+            lib=(lambda: torch.matmul(am, bm)) if tag in ("K1", "K2") else None))
+    del a, b, am, bm
     torch.cuda.empty_cache()
     return kernel_rows, {"launches": launches, "ms": times, "accurate_errors": errs}
+
+
+def first_call_row(tag: str, kept, kern, plain, name: str, source: str, replaces: str,
+                   launches: int, ms_set, phase, case: str, mkn=None, lib=None) -> dict:
+    """The kernels line's row of ``kern`` (K1, K2, K3, K4 or K6) at the first
+    call ``kept`` (a ``FirstCallPerShape``) holds: bitwise against its plain
+    version, both timed, beside its bound and the library call ``lib`` (for
+    K1/K2, whose (m, k, n) is ``mkn``; K3/K4 time ``torch._scaled_mm`` /
+    ``torch._int_mm`` on the same planes)."""
+    import torch
+
+    n_shapes = kept.seen
+    args_, kw = next(iter(kept.calls.values()))
+    kw = {k: v for k, v in kw.items() if k != "out"}  # K3/K4 write a product plane
+    got, ref = kern(*args_, **kw), plain(*args_, **kw)
+    outs_k = list(got) if isinstance(got, tuple) else [got]
+    outs_p = list(ref) if isinstance(ref, tuple) else [ref]
+    for g, r in zip(outs_k, outs_p):
+        check_equal(as_bytes(g), as_bytes(r), f"phase {phase} {tag} at its first shape vs plain")
+    err = max(max_abs_err(g, r) for g, r in zip(outs_k, outs_p))
+    del got, ref, outs_k, outs_p
+    torch.cuda.empty_cache()
+    ms_k = cuda_ms(lambda: kern(*args_, **kw))
+    ms_p = cuda_ms(lambda: plain(*args_, **kw), 3)
+    prods = ms_set.n if ms_set.family == "int8" else 3 * ms_set.n
+    if tag in ("K1", "K2"):
+        m, k, n = mkn
+        n_ops = prods * 2 * m * k * n
+        n_bytes = (sum(t.numel() * t.element_size() for t in args_ if hasattr(t, "numel"))
+                   + 8 * m * n) if tag == "K1" else part_bytes(ms_set, m, k, n)
+    elif tag in ("K3", "K4"):
+        x, y = args_[0], args_[1]
+        m, k, n = x.shape[0], x.shape[1], y.shape[1]
+        n_ops, n_bytes = 2 * m * k * n, m * k + k * n + 4 * m * n
+        if tag == "K4":
+            yc = y.contiguous()
+            lib = lambda: torch._int_mm(x, yc)  # noqa: E731
+        else:
+            one = torch.ones((), dtype=torch.float32, device=x.device)
+            lib = lambda: torch._scaled_mm(x, y, scale_a=one, scale_b=one,  # noqa: E731
+                                           out_dtype=torch.float32, use_fast_accum=False)
+    else:
+        m, k = args_[0].shape
+        n = None
+        n_ops, n_bytes = 0, (8 + 3 * ms_set.n) * m * k + 4 * m + 4 * ms_set.n * 1024
+    ms_l = cuda_ms(lib) if lib else None
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S * 1e3, n_ops / H100_FP8_OPS_PER_S * 1e3
+    row = {"name": name, "tag": tag, "phase": phase, "case": case,
+           "shape": [m, k] + ([n] if n else []), "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": ms_k, "plain_ms": ms_p, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes > t_ops else "operations", "library_ms": ms_l,
+           "shapes_seen": n_shapes}
+    lib_txt = f"{ms_l:.3f} ms" if ms_l is not None else "none"
+    print(f"  {tag} {name} at {row['shape']} ({case}; {n_shapes} distinct input shapes): "
+          f"kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, library {lib_txt}, bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']}), launches {row['launches']}, "
+          f"== plain (bitwise)", flush=True)
+    return row
 
 
 def dist_lu_phase(args, dev, hpl_rows) -> dict:
@@ -3628,9 +3662,10 @@ PIPE_ARCH, PIPE_POLICY = "qwen2-7b", "ozaki2-fp8/fast"
 PIPE_LAYERS, PIPE_M, PIPE_MB, PIPE_SEQ = 4, 6, 2, 512
 #: (b): the sharded training step at full width, SPMD_LAYERS deep (the
 #: single-device step peaked at 70.54 GB at 2 layers in phase 12: the
-#: sharded state and the gathered leaves take the room of the second), on
+#: sharded state and the ranks' blocks take the room of the second), on
 #: these meshes ("data", "model") of the card, a batch of SPMD_BATCH x
-#: SPMD_SEQ tokens.
+#: SPMD_SEQ tokens; tensor-parallel over "model" (qwen2-7b's 28 / 4 heads
+#: divide both meshes' "model": attention runs head-local).
 SPMD_LAYERS, SPMD_BATCH, SPMD_SEQ = 1, 2, 256
 SPMD_MESHES = ((1, 4), (2, 2))
 #: (b)'s gates on the (2, 2) step against the whole-batch step: the loss
@@ -3642,8 +3677,11 @@ SPMD_MESHES = ((1, 4), (2, 2))
 #: on its own. The bound lies between the sound reading and a planted fault
 #: (one data rank's rows dropped), both printed and checked each run.
 SPMD_LOSS_TOL, SPMD_GRAD_TOL = 1e-4, 2e-2
-#: (c): the dry run's cells, on the production mesh of meta devices.
-DRYRUN_CELLS = (("qwen2-7b", "train_4k"), ("qwen2-7b", "decode_32k"))
+#: (c): the dry run's cells, on the production mesh of meta devices:
+#: qwen2-7b takes the gather path at model 16 (4 kv heads), gemma2-27b
+#: the head-local one (32 / 16 heads).
+DRYRUN_CELLS = (("qwen2-7b", "train_4k"), ("qwen2-7b", "decode_32k"),
+                ("gemma2-27b", "train_4k"))
 
 
 def pipeline_part(args, dev) -> tuple[dict, dict]:
@@ -3764,6 +3802,39 @@ def rel_norm(x, ref) -> float:
     return float(torch.linalg.norm(x - ref) / max(float(torch.linalg.norm(ref)), 1e-300))
 
 
+def tp_train_launches(cfg, data: int, model: int, ms) -> dict:
+    """The launches of one tensor-parallel training step of a dense config
+    on a (data, model) mesh, fast mode on the kernel route
+    (``models.tensor_parallel``): on each data rank, a column-parallel
+    GEMM (q, k, v, the MLP's gate and up, the lm_head) is ``model`` mn
+    blocks (K2 and its transpose each) forward and for dW, and its dX a
+    contraction split over "model"; a row-parallel GEMM (o, down) is a split
+    contraction forward and ``model`` mn blocks each for dX and dW. Under
+    remat "full" each layer's forward runs again but its last product, the
+    MLP's down projection, whose operands are packed before it runs
+    (``tensor_parallel._RowOperands``); a post-norm (gemma2) saves that
+    product's output, and then it runs again too. A split contraction is
+    ``model`` k shards, each run in slices of at most ``K_SLICE``: K6 twice
+    and K3 3N times a slice."""
+    from repro_torch.core.distributed import K_SLICE
+    from repro_torch.models.attention import _h_eff
+
+    blk = lambda n: -(-n // model)  # noqa: E731
+    sl = lambda n: -(-blk(n) // K_SLICE)  # noqa: E731
+    q, kv, ff = _h_eff(cfg) * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim, cfg.d_ff
+    col, row = 3 + (2 if cfg.gated_mlp else 1), 2
+    again = 1 if cfg.remat == "full" else 0
+    down_again = again if cfg.post_norms else 0
+    mn = cfg.num_layers * ((2 + again) * col + 2 * row) + 2
+    slices = (cfg.num_layers * ((1 + again) * sl(q) + (1 + down_again) * sl(ff) + sl(q)
+                                + 2 * sl(kv)
+                                + (2 if cfg.gated_mlp else 1) * sl(ff))
+              + sl(cfg.padded_vocab))
+    ranks = data * model
+    return {"K2": ranks * mn, "K2 transpose": ranks * mn, "K6": ranks * 2 * slices,
+            "K3": ranks * 3 * ms.n * slices}
+
+
 def spmd_part(args, dev) -> tuple[dict, dict]:
     """Phase 15 (b) (module docstring). Returns its numbers and K1's row."""
     import dataclasses
@@ -3772,9 +3843,13 @@ def spmd_part(args, dev) -> tuple[dict, dict]:
     import numpy as np
     import torch
 
+    from repro_torch import kernels as kn
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, synth_batch
     from repro_torch.distribution.spmd import make_sharded_train_step
+    from repro_torch.kernels import pipeline
+    from repro_torch.kernels.fused import ops, ozmm_fused_parts, ozmm_fused_parts_ref
+    from repro_torch.kernels.quant_residues import ops as qr_ops
     from repro_torch.launch import make_host_mesh
     from repro_torch.models import Model
     from repro_torch.models.convert import reference_leaves
@@ -3840,6 +3915,8 @@ def spmd_part(args, dev) -> tuple[dict, dict]:
           f"host in {t_host:.1f} s", flush=True)
     out = {"params": n_params, "single": {"ms": ms1, "loss": loss1, "peak_gb": peak1,
                                           "launches": c1}}
+    ms_set = resolve_pinned_policy(cfg.gemm, None).moduli_set()
+    firsts = None
     for shape in SPMD_MESHES:
         mesh = make_host_mesh(*shape, devices=dev)
         shard_state, sstep, unshard_state = make_sharded_train_step(model, opt_cfg, mesh)
@@ -3848,11 +3925,20 @@ def spmd_part(args, dev) -> tuple[dict, dict]:
         gc.collect()
         torch.cuda.empty_cache()
         t_shard = time.perf_counter() - t_shard
-        (sharded, m2), ms2, c2, peak2 = run(sstep, sharded, batch)
+        if firsts is None:  # the first mesh's step: K2, K3 and K6 at their first shard shape
+            firsts = {"K2": FirstCallPerShape(ops, "ozmm_fused_parts", keep=1),
+                      "K3": FirstCallPerShape(pipeline, "fp8_gemm", keep=1),
+                      "K6": FirstCallPerShape(qr_ops, "quant_residues_f64", keep=1)}
+            with firsts["K2"], firsts["K3"], firsts["K6"]:
+                (sharded, m2), ms2, c2, peak2 = run(sstep, sharded, batch)
+            tp_counts = c2
+        else:
+            (sharded, m2), ms2, c2, peak2 = run(sstep, sharded, batch)
         t_checks = time.perf_counter()
         data = shape[0]
-        check(c2 == want(data * per_grad),
-              f"{shape} sharded step launches {c2}, predicted {want(data * per_grad)}")
+        tp_want = {k: 0 for k in c2}
+        tp_want.update(tp_train_launches(cfg, data, shape[1], ms_set))
+        check(c2 == tp_want, f"{shape} sharded step launches {c2}, predicted {tp_want}")
         loss2 = float(m2["loss"])
         if data == 1:  # the single-device step's ops on the same values
             check(loss2 == loss1, f"{shape}: loss {loss2} != single-device {loss1}")
@@ -3950,16 +4036,43 @@ def spmd_part(args, dev) -> tuple[dict, dict]:
             sharded = None
         print(f"  (b) {time.perf_counter() - tb:.1f} s into (b): shard_state {t_shard:.1f} s, "
               f"the checks {time.perf_counter() - t_checks:.1f} s", flush=True)
-        print(f"  (b) sharded step on a {shape} (data, model) mesh of the card: {ms2:.1f} ms "
-              f"(single device {ms1:.1f}), loss {loss2:.6f}, K1 {c2['K1']} launches "
-              f"({data} x {per_grad}), peak {peak2:.2f} GB; {verdict}", flush=True)
+        print(f"  (b) sharded step, tensor-parallel, on a {shape} (data, model) mesh of the "
+              f"card: {ms2:.1f} ms (single device {ms1:.1f}), loss {loss2:.6f}, launches "
+              f"{ {k: v for k, v in c2.items() if v} } (as predicted), peak {peak2:.2f} GB; "
+              f"{verdict}", flush=True)
         out[f"{shape[0]}x{shape[1]}"] = {"ms": ms2, "loss": loss2, "peak_gb": peak2,
                                          "launches": c2}
         del sharded, m2, shard_state, sstep, unshard_state
         gc.collect()
         torch.cuda.empty_cache()
-    # K1 at lm_head's input gradient for a data rank of the (2, 2) step
-    rows = SPMD_BATCH * SPMD_SEQ // SPMD_MESHES[-1][0]
+    # K2, K3 and K6 at their first shard shape in the (1, 4) step, with its
+    # launches; K1 at lm_head's input gradient of the single-device step
+    tp_rows = []
+    for tag, kern, plain, name, source, replaces in (
+            ("K2", ozmm_fused_parts, ozmm_fused_parts_ref, "ozmm_fused_parts",
+             "src/repro_torch/csrc/fused_parts.cu", "src/repro/kernels/fused/kernel.py:265"),
+            ("K3", kn.fp8_gemm, kn.fp8_gemm_plain, "fp8_gemm",
+             "src/repro_torch/csrc/residue_gemm.cu", "src/repro/kernels/fp8_gemm/kernel.py:34"),
+            ("K6", kn.quant_residues_f64, kn.quant_residues_f64_plain, "quant_residues",
+             "src/repro_torch/csrc/quant_residues.cu",
+             "src/repro/kernels/quant_residues/kernel.py:77")):
+        mkn = lib = None
+        if tag == "K2":
+            (sa, sb, *_), _ = next(iter(firsts["K2"].calls.values()))
+            mkn = (sa[0].shape[1], sa[0].shape[2], sb[0].shape[2])
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(args.seed + 18)
+            am = torch.randn(mkn[:2], generator=gen, device=dev, dtype=torch.float64)
+            bm = torch.randn(mkn[1:], generator=gen, device=dev, dtype=torch.float64)
+            lib = lambda: torch.matmul(am, bm)  # noqa: E731
+        tp_rows.append(first_call_row(
+            tag, firsts[tag], kern, plain, name, source, replaces, tp_counts[tag], ms_set, 15,
+            f"the {SPMD_MESHES[0]} tensor-parallel step", mkn=mkn, lib=lib))
+        firsts[tag].calls = {}
+        am = bm = lib = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows = SPMD_BATCH * SPMD_SEQ
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 17)
     dlogits = torch.randn((rows, cfg.vocab_size), generator=gen, device=dev,
@@ -3967,32 +4080,62 @@ def spmd_part(args, dev) -> tuple[dict, dict]:
     w_t = host["lm_head"][0].T.to(dev, torch.float64).contiguous()
     del host
     gc.collect()
-    row = k1_train_row(dlogits, w_t, out["2x2"]["launches"]["K1"],
-                       what="the sharded step's lm_head input gradient")
+    row = k1_train_row(dlogits, w_t, out["single"]["launches"]["K1"],
+                       what="the single-device step's lm_head input gradient")
     del dlogits, w_t
     gc.collect()
     torch.cuda.empty_cache()
-    return out, row
+    return out, [row, *tp_rows]
 
 
 def dryrun_part() -> dict:
-    """Phase 15 (c) (module docstring): the dry run's cells on meta."""
+    """Phase 15 (c) (module docstring): the dry run's cells on meta, each
+    rank 0's tensor-parallel program: its FLOPs the analytic count, and
+    every leaf the rules split over "model" handed to it as the rank's
+    block (none all-gathered over "model")."""
     from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distribution import param_specs, spmd
+    from repro_torch.distribution.sharding import model_split
+    from repro_torch.models.tensor_parallel import ModelSplit
+    from repro_torch.launch import dryrun
     from repro_torch.launch.dryrun import BIG_ARCHS, dryrun_cell, model_flops
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import Model
+
+    programs = spmd.sharded_programs
+    handed: dict = {}
+
+    def recording(*a, **kw):
+        for d, axis, leaves, block in programs(*a, **kw):
+            handed.update({k: isinstance(v, ModelSplit) for k, v in leaves.items()})
+            yield d, axis, leaves, block
 
     out = {}
-    for arch, shape in DRYRUN_CELLS:
-        rec = dryrun_cell(arch, shape, False)
-        check(rec["status"] == "ok", f"dry run {arch} {shape}: {rec}")
-        s = SHAPES[shape]
-        cfg = get_config(arch, "full", **BIG_ARCHS.get(arch, {}))
-        local = s.global_batch // 16
-        want = model_flops(cfg, s.kind, local, s.seq_len, s.seq_len + 8)
-        check(rec["flops_per_device"] == want,
-              f"dry run {arch} {shape}: {rec['flops_per_device']} FLOPs a rank, analytic {want}")
-        print(f"  (c) dryrun_cell({arch!r}, {shape!r}) on 16 x 16 meta ranks: "
-              + json.dumps(rec), flush=True)
-        out[f"{arch}/{shape}"] = rec
+    spmd.sharded_programs = dryrun.sharded_programs = recording
+    try:
+        for arch, shape in DRYRUN_CELLS:
+            handed.clear()
+            rec = dryrun_cell(arch, shape, False)
+            check(rec["status"] == "ok", f"dry run {arch} {shape}: {rec}")
+            s = SHAPES[shape]
+            cfg = get_config(arch, "full", **BIG_ARCHS.get(arch, {}))
+            local = s.global_batch // 16
+            want = model_flops(cfg, s.kind, local, s.seq_len, s.seq_len + 8, model=16)
+            check(rec["flops_per_device"] == want,
+                  f"dry run {arch} {shape}: {rec['flops_per_device']} FLOPs a rank, "
+                  f"analytic {want}")
+            split = model_split(param_specs(Model(cfg, device="meta").init()), cfg,
+                                make_production_mesh(devices="meta"))
+            kept = {k for k, v in handed.items() if v}
+            check(bool(split) and kept == split,
+                  f"dry run {arch} {shape}: {len(split - kept)} leaves split over 'model' "
+                  "were gathered over it")
+            print(f"  (c) dryrun_cell({arch!r}, {shape!r}) on 16 x 16 meta ranks, "
+                  f"tensor-parallel ({len(kept)} leaves kept split over 'model', FLOPs == "
+                  "model_flops): " + json.dumps(rec), flush=True)
+            out[f"{arch}/{shape}"] = rec
+    finally:
+        spmd.sharded_programs = dryrun.sharded_programs = programs
     return out
 
 
@@ -4002,12 +4145,12 @@ def framework_phase(args, dev) -> dict:
     t0 = time.perf_counter()
     pipe, pipe_row = pipeline_part(args, dev)
     t1 = time.perf_counter()
-    spmd, spmd_row = spmd_part(args, dev)
+    spmd, spmd_rows = spmd_part(args, dev)
     t2 = time.perf_counter()
     dry = dryrun_part()
     print(f"  phase 15: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
           f"{time.perf_counter() - t2:.1f} s", flush=True)
-    return {"kernel_rows": [pipe_row, spmd_row],
+    return {"kernel_rows": [pipe_row, *spmd_rows],
             "framework": {"pipeline": pipe, "sharded_step": spmd, "dryrun": dry}}
 
 
@@ -4409,8 +4552,9 @@ def main() -> int:
     ap.add_argument("--size", type=int, default=8192,
                     help="m = n = k of the main path (default 8192)")
     ap.add_argument("--hpl-n", type=int, default=8192,
-                    help="n of phase 7's accurate HPL run (its native and fast runs take half) "
-                         "and of phase 13's (default 8192)")
+                    help="n of phase 13 (b)'s LU; the HPL runs take a share of it: phase "
+                         "13 (c) and phase 7's accurate half, phase 7's native and fast a "
+                         "quarter (default 8192)")
     ap.add_argument("--serve-layers", type=int, default=1,
                     help="layers of qwen2-7b in phase 10 (default 1 of 28)")
     ap.add_argument("--seed", type=int, default=0)

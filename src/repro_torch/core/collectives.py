@@ -3,13 +3,16 @@
 One process drives every rank (``launch.Mesh``), so a collective is an
 explicit function of the ranks' tensors: an all-reduce folds them in
 ascending rank order, an all-gather concatenates blocks in rank order, a
-permute hands a tensor to the next rank's device. ``core.distributed``,
-``distribution.spmd`` and ``distribution.pipeline`` call these.
+permute hands a tensor to the next rank's device. ``psum`` and
+``gather_blocks`` are the all-reduce and all-gather over one mesh axis
+that a tensor-parallel program runs on activations. ``core.distributed``,
+``distribution.spmd``, ``models.tensor_parallel`` and
+``distribution.pipeline`` call these.
 
 Each call records its bytes with every active counter
 (``distribution.op_cost.analyze``), by the reference's kinds
 (``repro/distribution/hlo_cost.py``): the bytes of the collective's result
-as one rank holds it. The torch ops a collective runs inside are its own
+as one rank holds it, and under the innermost ``purpose`` named around it. The torch ops a collective runs inside are its own
 and are not counted as the program's (``inside()``).
 """
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
 
-_COUNTERS: list = []  # objects with .add_collective(kind, nbytes)
+_COUNTERS: list = []  # objects with .add_collective(kind, nbytes, purpose)
+_PURPOSES: list = []  # the purposes named around the collectives now running
 _depth = 0
 
 
@@ -36,6 +40,17 @@ def counting(counter):
         yield counter
     finally:
         _COUNTERS.remove(counter)
+
+
+@contextlib.contextmanager
+def purpose(name: str):
+    """Tell the counters that the collectives in the block serve ``name``
+    (beside their kind), so a record can show them apart."""
+    _PURPOSES.append(name)
+    try:
+        yield
+    finally:
+        _PURPOSES.pop()
 
 
 def inside() -> bool:
@@ -54,7 +69,7 @@ def collective(kind: str):
 
     def done(n: int) -> None:
         for c in _COUNTERS:
-            c.add_collective(kind, int(n))
+            c.add_collective(kind, int(n), _PURPOSES[-1] if _PURPOSES else None)
 
     try:
         yield done
@@ -72,6 +87,39 @@ def reduce_ranks(parts: list[torch.Tensor], op, device) -> torch.Tensor:
             acc = op(acc, t.to(device))
         done(nbytes(acc))
     return acc
+
+
+def psum(parts: list[torch.Tensor], device, size: int) -> torch.Tensor:
+    """An all-reduce over one mesh axis of ``size`` ranks: the parts summed
+    in ascending rank order on ``device`` (``reduce_ranks`` with
+    ``torch.add``). Over one rank it moves nothing and records nothing.
+    ``parts`` may hold fewer than ``size`` ranks' parts (a call that runs
+    some ranks' programs, for counting)."""
+    if size == 1:
+        return parts[0].to(device)
+    return reduce_ranks(parts, torch.add, device)
+
+
+def gather_blocks(blocks: list, dim: int, device, sizes: list[int]) -> torch.Tensor:
+    """An all-gather over one mesh axis of activation blocks: each rank's
+    block (``sizes[r]`` long along ``dim``) concatenated along ``dim`` in
+    rank order on ``device``. A block given as None, a rank the call does
+    not run (a call for counting), is zeros of its size. Over one rank it
+    moves nothing and records nothing."""
+    if len(sizes) == 1:
+        return blocks[0].to(device)
+    with collective("all-gather") as done:
+        like = next(b for b in blocks if b is not None)
+        parts = []
+        for b, n in zip(blocks, sizes):
+            if b is None:
+                shape = list(like.shape)
+                shape[dim] = n
+                b = torch.zeros(shape, dtype=like.dtype, device=device)
+            parts.append(b.to(device))
+        out = torch.cat(parts, dim=dim)
+        done(nbytes(out))
+    return out
 
 
 def all_gather(sharding, blocks: list[torch.Tensor], device) -> torch.Tensor:

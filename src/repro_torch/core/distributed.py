@@ -13,6 +13,8 @@ Two sharding strategies, the paper's §IV-C blocking mapped onto a mesh
   the int32 partials are summed over the ranks and re-reduced mod p, then
   the Garner digits and the f64 reconstruction run once. The reduction
   moves N int32 matrices (4N bytes an element), the price of exactness.
+  ``k_sharded_product`` runs that on given slices: the tensor-parallel
+  products (``models.tensor_parallel``) share it.
 
 The scaling statistics are global: fast mode sums the squared norms and
 takes the maximum of the abs-maxima over the ranks; accurate mode sums the
@@ -47,7 +49,7 @@ import torch
 from repro_torch.precision.policy import OZAKI2_FAMILY, PrecisionPolicy
 
 from . import crt, numerics, quantize, scaling
-from .collectives import collective, reduce_ranks
+from .collectives import collective, nbytes, reduce_ranks
 from .moduli import DEFAULT_NUM_MODULI, ModuliSet, make_moduli_set
 from .plan import (QuantizedMatrix, ozmm_prepared, plan_from_wire, plan_to_wire, pow2_tables,
                    quantize_matrix, residue_products, wire_bytes)
@@ -112,12 +114,28 @@ def ozmm_mn_sharded(a, b, mesh, *, m_axis: str = "data", n_axis: str = "model",
     return out
 
 
+#: The longest contraction one residue product keeps exact: an FP8
+#: product's f32 sum reaches k * 2^8 and must stay within 2^24 (K3's limit,
+#: ``kernels.fp8_gemm.max_k``); a longer k shard runs in slices of it.
+K_SLICE = 2 ** 16
+
+
 def k_shard_residues(a_loc: torch.Tensor, b_loc: torch.Tensor, lmu: torch.Tensor,
                      lnu: torch.Tensor, ms: ModuliSet, route: str) -> list[torch.Tensor]:
     """One k shard's centred residue products C'_l (int32 (m, n) a modulus)
     of its slices under the global exponents: the core's quantization and
     products, or K6 (A's parts, and B's K-major from B^T) and the K3/K4
-    schedule, then the core's combine."""
+    schedule, then the core's combine. A shard longer than ``K_SLICE`` runs
+    slice by slice and sums the slices' residues (exact: the residues are
+    linear mod p)."""
+    k = a_loc.shape[1]
+    if k > K_SLICE:
+        acc = None
+        for s in range(0, k, K_SLICE):
+            cs = k_shard_residues(a_loc[:, s:s + K_SLICE], b_loc[s:s + K_SLICE], lmu, lnu,
+                                  ms, route)
+            acc = cs if acc is None else [x + c for x, c in zip(acc, cs)]
+        return [numerics.centered_mod(c, p) for c, p in zip(acc, ms.ps)]
     if route == "core":
         tables = pow2_tables(ms, a_loc.device)
         return residue_products(quantize.quantize_operand(a_loc, lmu, 0, ms, tables),
@@ -155,11 +173,41 @@ def k_sharded_exponents(a_sh: list[torch.Tensor], b_sh: list[torch.Tensor], k: i
             scaling.accurate_exponents(cbar.amax(dim=0), lnu2.to(device), bmax, ms))
 
 
+def k_sharded_product(a_sh: list[torch.Tensor], b_sh: list[torch.Tensor], ms: ModuliSet,
+                      mode: str, routes: list[str], device, size: int | None = None,
+                      k: int | None = None) -> torch.Tensor:
+    """The exact product of a contraction split over ``size`` ranks (default
+    ``len(a_sh)``), from the ranks' slices: rank r's columns ``a_sh[r]`` of
+    A and rows ``b_sh[r]`` of B, on its device, its products on
+    ``routes[r]``. The global exponents (``k_sharded_exponents``, ``k`` the
+    whole contraction's length, default the slices' sum), each rank's int32
+    residue partials, one psum of those planes (an all-reduce), then the
+    centring, the Garner digits and the f64 reconstruction once, on
+    ``device``. Fewer slices than ``size`` (some ranks' programs, for
+    counting) give the partial sum of theirs."""
+    k = k if k is not None else sum(x.shape[1] for x in a_sh)
+    lmu, lnu = k_sharded_exponents(a_sh, b_sh, k, ms, mode, device)
+    size = size if size is not None else len(a_sh)
+    acc = None
+    for i, (xa, xb, route) in enumerate(zip(a_sh, b_sh, routes)):  # ascending rank
+        d = xa.device
+        cs = k_shard_residues(xa, xb, lmu.to(d), lnu.to(d), ms, route)
+        with collective("all-reduce") as done:  # the psum's adds, as each rank's arrive
+            acc = ([c.to(device) for c in cs] if acc is None
+                   else [x + c.to(device) for x, c in zip(acc, cs)])
+            if i == len(a_sh) - 1 and size > 1:
+                done(sum(nbytes(c) for c in acc))
+        del cs
+    cs = [numerics.centered_mod(c, p) for c, p in zip(acc, ms.ps)]
+    return crt.reconstruct(crt.garner_digits(cs, ms), ms, lmu, lnu)
+
+
 def ozmm_k_sharded(a, b, mesh, *, k_axis: str = "model", family: str = "fp8-hybrid",
                    num_moduli: int | None = None, mode: str = "fast") -> torch.Tensor:
     """Emulated GEMM with the contraction sharded over ``k_axis``, exact:
     the ranks' centred int32 residue partials are summed, then re-reduced
-    mod p. Returns the f64 product on the first rank's device."""
+    mod p (``k_sharded_product``). Returns the f64 product on the first
+    rank's device."""
     num_moduli = num_moduli or DEFAULT_NUM_MODULI[family]
     ms = make_moduli_set(family, num_moduli)
     devs = mesh.axis_devices(k_axis)
@@ -169,17 +217,9 @@ def ozmm_k_sharded(a, b, mesh, *, k_axis: str = "model", family: str = "fp8-hybr
     if b.shape[0] != k:
         raise ValueError(f"contraction mismatch {tuple(a.shape)} @ {tuple(b.shape)}")
     ks = _split(k, len(devs), "k")
-    a_sh = [a[:, s].to(d) for s, d in zip(ks, devs)]
-    b_sh = [b[s].to(d) for s, d in zip(ks, devs)]
-    lmu, lnu = k_sharded_exponents(a_sh, b_sh, k, ms, mode, out_dev)
-    acc = None
-    for xa, xb, d in zip(a_sh, b_sh, devs):  # ascending rank: the psum
-        cs = k_shard_residues(xa, xb, lmu.to(d), lnu.to(d), ms,
-                              shard_route(family, mode, num_moduli, d))
-        cs = [c.to(out_dev) for c in cs]
-        acc = cs if acc is None else [x + c for x, c in zip(acc, cs)]
-    cs = [numerics.centered_mod(c, p) for c, p in zip(acc, ms.ps)]
-    return crt.reconstruct(crt.garner_digits(cs, ms), ms, lmu, lnu)
+    return k_sharded_product([a[:, s].to(d) for s, d in zip(ks, devs)],
+                             [b[s].to(d) for s, d in zip(ks, devs)], ms, mode,
+                             [shard_route(family, mode, num_moduli, d) for d in devs], out_dev)
 
 
 # ---------------------------------------------------------------------------

@@ -204,6 +204,18 @@ class _PlannedVJP(torch.autograd.Function):
         return ga, gb, None, None
 
 
+def refuse_explicit_pallas_vjp(pol: PrecisionPolicy) -> None:
+    """Raise when ``pol`` asks for the kernel route explicitly: ``+pallas``
+    is forward-only, and its backward is refused rather than rerouted."""
+    if pol.backend == "pallas":
+        kernel = "ozmm_pallas_fused" if pol.fused else "ozmm_pallas"
+        raise NotImplementedError(
+            f"policy {pol.spec!r}: backend='pallas' is forward-only — "
+            f"{kernel} has no VJP (serving/inference); differentiate "
+            "through the core backend (or backend='auto', which runs the "
+            "backward cotangent GEMMs as emulated GEMMs) instead")
+
+
 class _UnpreparedVJP(torch.autograd.Function):
     """An emulated GEMM ``fn`` whose backward runs the two cotangent
     products as unprepared calls of ``fn`` itself: the kernel route (the
@@ -218,14 +230,7 @@ class _UnpreparedVJP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        pol = ctx.pol
-        if pol.backend == "pallas":  # explicitly requested: refuse, don't reroute
-            kernel = "ozmm_pallas_fused" if pol.fused else "ozmm_pallas"
-            raise NotImplementedError(
-                f"policy {pol.spec!r}: backend='pallas' is forward-only — "
-                f"{kernel} has no VJP (serving/inference); differentiate "
-                "through the core backend (or backend='auto', which runs the "
-                "backward cotangent GEMMs as emulated GEMMs) instead")
+        refuse_explicit_pallas_vjp(ctx.pol)
         a, b = ctx.saved_tensors
         g64 = g.to(torch.float64)
         ga = ctx.fn(g64, b.T) if ctx.needs_input_grad[0] else None

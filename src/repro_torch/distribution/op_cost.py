@@ -16,7 +16,10 @@ returns the reference's keys:
     included; views write none);
   * ``collective_bytes``: bytes by kind, as the port's collectives
     (``core.collectives``) record them: the result as one rank holds it;
-  * ``collective_total``, and ``collective_counts`` by kind.
+  * ``collective_total``, and ``collective_counts`` by kind;
+  * ``collective_purposes``: for each purpose a program named around some
+    of its collectives (``collectives.purpose``), their total bytes and
+    the largest one's (already counted by kind too).
 
 Beside them: ``peak_bytes``, the high-water mark of the bytes of live
 storages that ops created during the call (the arguments' own storages
@@ -81,14 +84,19 @@ class CostCounter(TorchDispatchMode):
         self.bytes_written = 0.0
         self.coll = defaultdict(float)
         self.coll_counts = defaultdict(int)
+        self.purposes: dict = {}  # purpose -> {"bytes", "largest"}
         self.ops = 0
         self._live: dict = {}  # storage key -> bytes, until the storage dies
         self._live_bytes = 0
         self.peak_bytes = 0
 
-    def add_collective(self, kind: str, nbytes: int) -> None:
+    def add_collective(self, kind: str, nbytes: int, purpose: str | None = None) -> None:
         self.coll[kind] += nbytes
         self.coll_counts[kind] += 1
+        if purpose is not None:
+            rec = self.purposes.setdefault(purpose, {"bytes": 0.0, "largest": 0.0})
+            rec["bytes"] += nbytes
+            rec["largest"] = max(rec["largest"], float(nbytes))
 
     def __enter__(self):
         self._counting = collectives.counting(self)
@@ -140,6 +148,7 @@ class CostCounter(TorchDispatchMode):
         return {"dot_flops": self.dot_flops, "bytes_written": self.bytes_written,
                 "collective_bytes": coll, "collective_total": float(sum(coll.values())),
                 "collective_counts": dict(self.coll_counts),
+                "collective_purposes": {k: dict(v) for k, v in self.purposes.items()},
                 "peak_bytes": self.peak_bytes, "ops": self.ops}
 
 

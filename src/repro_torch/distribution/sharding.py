@@ -22,7 +22,10 @@ without that axis.
 tensor on the port's single-controller mesh (``launch.Mesh``):
 ``shard(t)`` gives each rank's block on that rank's device, ``unshard``
 concatenates them back, exactly. ``Placed`` holds a tensor so placed: its
-sharding and its ranks' blocks.
+sharding and its ranks' blocks. ``model_split`` names the leaves a rank's
+program keeps split over "model" (tensor parallelism, the dense family);
+``local_sharding`` places a model rank's block of such a leaf over the
+other axes.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import reference_leaves, reference_path
 from repro_torch.optim import OptState, Q8
+from repro_torch.precision import resolve_policy
 
 
 class PartitionSpec(tuple):
@@ -362,6 +366,46 @@ class NamedSharding:
         return cat((), 0)
 
 
+# ------------------------------------------------------- tensor parallelism
+def tensor_parallel(cfg: ModelConfig) -> bool:
+    """Whether the sharded programs compute ``cfg``'s "model"-split leaves
+    tensor-parallel: the dense family without MLA. Every other family's
+    leaves are gathered over "model" (``spmd``'s docstring names them)."""
+    return cfg.family == "dense" and not cfg.use_mla
+
+
+def model_dim(spec: P) -> int | None:
+    """The dimension a spec splits over "model" alone, or None (not split
+    over "model", or "model" folded with another axis)."""
+    dims = [i for i, e in enumerate(spec) if e == "model"]
+    return dims[0] if len(dims) == 1 else None
+
+
+def model_split(specs: dict, cfg: ModelConfig, mesh: Mesh) -> frozenset:
+    """The leaves (names of ``specs``) that stay split over "model" in a
+    rank's program: under ``tensor_parallel(cfg)`` on a mesh whose "model"
+    axis has more than one rank, with a native or Ozaki-II policy
+    (``cfg.gemm``, else the context's: another emulated scheme has no exact
+    split contraction), every leaf its spec splits over "model" alone (for
+    the dense family: ``embed``, ``lm_head``, attention's ``wq``/``wk``/
+    ``wv``/``wo`` and biases, the MLP's three matrices)."""
+    pol = resolve_policy(cfg.gemm)
+    if (not tensor_parallel(cfg) or mesh.axis_size("model") == 1
+            or (pol.is_emulated and not pol.supports_plans)):
+        return frozenset()
+    return frozenset(k for k, s in specs.items() if model_dim(s) is not None)
+
+
+def local_sharding(sharding: "NamedSharding", index: int) -> tuple["NamedSharding", list[int]]:
+    """A model rank's block of a leaf split over "model", as the other
+    axes place it: the sharding on the mesh of the other axes at ``index``
+    along "model" (the spec's "model" entry dropped), and the ranks of the
+    mesh that hold its blocks, in that sharding's rank order."""
+    sub, ranks = sharding.mesh.sub("model", index)
+    spec = P(*(None if e == "model" else e for e in sharding.spec))
+    return NamedSharding(sub, spec), ranks
+
+
 class Placed(NamedTuple):
     """A tensor as the ranks hold it: its sharding and one block a rank."""
     sharding: NamedSharding
@@ -370,6 +414,18 @@ class Placed(NamedTuple):
     @property
     def dtype(self) -> torch.dtype:
         return self.blocks[0].dtype
+
+    @property
+    def shape(self) -> torch.Size:
+        """The shape of the tensor the blocks cut."""
+        nd = self.blocks[0].dim()
+        out = []
+        for d in range(nd):
+            lengths = {}
+            for idx, b in zip(self.sharding.block_indices(nd), self.blocks):
+                lengths.setdefault(idx[d], b.shape[d])
+            out.append(sum(lengths.values()))
+        return torch.Size(out)
 
     def unshard(self, device=None) -> torch.Tensor:
         return self.sharding.unshard(self.blocks, device)

@@ -14,11 +14,28 @@ under ``distribution.op_cost``'s counter. Every rank runs the same program
 on blocks of the same shape, so rank 0's numbers are every rank's. Nothing
 is computed and nothing is allocated.
 
-The port's distributed step gathers every weight onto each data rank and
-splits no GEMM over "model" (``distribution.spmd``); GSPMD splits them. So
-on any mesh with a "model" axis the FLOPs, bytes and collective bytes
-differ from the reference's by design: per rank, the port runs its data
-rank's whole GEMMs and all-gathers each weight.
+On the dense family the program is tensor-parallel over "model", as
+GSPMD's is (``models.tensor_parallel``): rank 0 holds its blocks of
+the leaves split over "model", gathered over the data axes alone, and
+computes its column and row blocks of each GEMM, its heads of attention
+(or the whole attention on all-gathered q/k/v where the head counts do
+not divide "model"), its cache block, and psums the row-parallel partials.
+``model_flops`` is that program's analytic count. The other families
+gather their leaves over "model" (``distribution.spmd``), so on a mesh
+with a "model" axis their FLOPs, bytes and collective bytes differ from
+the reference's by design: per rank, the port runs its data rank's whole
+GEMMs of those leaves and all-gathers each.
+
+One departure stays in the tensor-parallel train step: it all-gathers
+each gradient leaf split over "model", one at a time, for the clipping norm
+(``spmd``: the single-device norm's bits), where GSPMD psums partial sums
+of squares. Those bytes are in ``collective_bytes_per_device``'s
+all-gather and again, on their own, in ``clip_norm_gather_bytes_per_device``
+(with the largest leaf's, ``clip_norm_largest_gather_bytes``: the
+transient a rank holds for it), so a pod-fit answer can be read without
+them. Under remat "full" the recompute skips each layer's MLP down
+projection, on one device and tensor-parallel alike, but after a
+post-norm (gemma2), which saves its output (``model_flops``).
 
 Records keep the reference's keys, with ``trace_s`` in place of
 ``lower_s`` and ``compile_s`` and ``entry_flops`` None (XLA's entry
@@ -38,15 +55,15 @@ import time
 import traceback
 
 import torch
-from torch import nn
 
 from repro_torch.configs import ARCHS, SHAPES, applicable, get_config, input_specs
 from repro_torch.core import collectives
 from repro_torch.distribution import batch_specs, cache_specs, named, param_specs
 from repro_torch.distribution.op_cost import analyze
 from repro_torch.distribution.sharding import P
-from repro_torch.distribution.spmd import (bind, data_size, gathered_programs,
-                                           make_sharded_train_step, place)
+from repro_torch.distribution.sharding import model_split
+from repro_torch.distribution.spmd import (bind, data_size, make_sharded_train_step, place,
+                                           rank_leaf, sharded_programs)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import Model
 from repro_torch.models.convert import reference_leaves
@@ -86,22 +103,29 @@ def _rank_state_bytes(tree, rank: int) -> int:
     return 0
 
 
-def _cache_block(cache, specs, mesh, rank: int, rows: P):
+def _cache_block(cache, specs, mesh, rank: int, rows: P, split_kv: bool, name: str = ""):
     """Rank ``rank``'s cache in its program: the rows of its batch block
     (``rows``: the batch's spec; every cache leaf is batch-major), whole
-    along every other axis. Where the block ``cache_specs`` stores on the
-    rank holds less, the rank gathers it (recorded as an all-gather of the
-    block it runs on)."""
+    along every other axis but, with ``split_kv`` (tensor-parallel
+    attention), a k/v leaf's kv heads: the rank's block of them, as the
+    list of the one model rank run. Where the block ``cache_specs`` stores
+    on the rank holds less, the rank gathers it (recorded as an all-gather
+    of the block it runs on)."""
     if isinstance(cache, torch.Tensor):
-        need = named(mesh, P(*rows, *([None] * (cache.dim() - len(rows))))).block(cache, rank)
+        kv = split_kv and name in ("k", "v")
+        tail = [None] * (cache.dim() - len(rows))
+        if kv:
+            tail[-2] = "model"
+        need = named(mesh, P(*rows, *tail)).block(cache, rank)
         if named(mesh, specs).block(cache, rank).numel() < need.numel():
             with collectives.collective("all-gather") as done:
                 done(_nbytes(need))
-        return need.clone()
+        return [need.clone()] if kv else need.clone()
     if isinstance(cache, dict):
-        return {k: _cache_block(v, specs[k], mesh, rank, rows) for k, v in cache.items()}
+        return {k: _cache_block(v, specs[k], mesh, rank, rows, split_kv, k)
+                for k, v in cache.items()}
     if isinstance(cache, list):
-        return [_cache_block(v, s, mesh, rank, rows) for v, s in zip(cache, specs)]
+        return [_cache_block(v, s, mesh, rank, rows, split_kv) for v, s in zip(cache, specs)]
     return cache
 
 
@@ -116,33 +140,44 @@ def _stored_bytes(cache, specs, mesh, rank: int) -> int:
     return 0
 
 
-def model_flops(cfg, kind: str, batch: int, seq_len: int, cache_len: int | None = None) -> float:
+def model_flops(cfg, kind: str, batch: int, seq_len: int, cache_len: int | None = None,
+                model: int = 1) -> float:
     """The analytic dot FLOPs of one rank's program on ``batch`` sequences
     for a dense GQA config under a native policy, in the port's
-    decomposition: per layer the q, k, v, o projections, attention's two
-    einsums over the whole key length (bmm) and the MLP's GEMMs; the
-    lm_head on every position (train) or the last (prefill, decode).
-    Training adds the two cotangent GEMMs of each (3x the forward) and,
-    under remat "full", each layer's forward again but its last GEMM, the
-    MLP's down projection (torch's non-reentrant checkpoint stops its
-    recompute once every tensor saved for the backward is back)."""
+    decomposition, tensor-parallel over ``model`` ranks (the rank's block,
+    ceil(n / model) of n, of each split dimension): per layer the q, k, v,
+    o projections, attention's two einsums over the whole key length (bmm;
+    on the rank's heads where ``head_local``, else on all of them) and the
+    MLP's GEMMs; the lm_head on every position (train) or the last
+    (prefill, decode). Training adds the two cotangent GEMMs of each (3x the
+    forward) and, under remat "full", each layer's forward again but its
+    last GEMM, the MLP's down projection (torch's non-reentrant checkpoint
+    stops its recompute once every tensor saved for the backward is back;
+    a row-parallel product packs its operands before it runs,
+    ``tensor_parallel._RowOperands``). A post-norm (gemma2) saves that
+    GEMM's output: then the recompute runs the whole layer."""
+    from repro_torch.models.attention import _h_eff, head_local
+
     if cfg.family not in ("dense",) or cfg.use_mla:
         raise ValueError(f"model_flops counts dense GQA configs, not {cfg.family!r}")
-    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    d, h, kv, hd = cfg.d_model, _h_eff(cfg), cfg.num_kv_heads, cfg.head_dim
+    blk = lambda n: -(-n // model)  # noqa: E731 - rank 0's block, the longest
     tokens = batch * (1 if kind == "decode" else seq_len)
     keys = cache_len if kind == "decode" else seq_len
     queries = 1 if kind == "decode" else seq_len
-    proj = 2 * tokens * d * (2 * h * hd + 2 * kv * hd)
-    down = 2 * tokens * d * cfg.d_ff
+    proj = 2 * tokens * d * (2 * blk(h * hd) + 2 * blk(kv * hd))
+    down = 2 * tokens * d * blk(cfg.d_ff)
     mlp = (3 if cfg.gated_mlp else 2) * down
-    attn = 2 * 2 * batch * h * queries * keys * hd
+    heads = h // model if head_local(cfg, model) else h
+    attn = 2 * 2 * batch * heads * queries * keys * hd
     layer = proj + mlp + attn
     head_rows = tokens if kind == "train" else batch
-    head = 2 * head_rows * d * cfg.padded_vocab
+    head = 2 * head_rows * d * blk(cfg.padded_vocab)
     fwd = cfg.num_layers * layer + head
     if kind != "train":
         return float(fwd)
-    return float(3 * fwd + (cfg.num_layers * (layer - down) if cfg.remat == "full" else 0))
+    recompute = layer if cfg.post_norms else layer - down
+    return float(3 * fwd + (cfg.num_layers * recompute if cfg.remat == "full" else 0))
 
 
 def dryrun_cell(arch: str, shape_name: str, multi_pod: bool, gemm_backend: str = "native",
@@ -184,8 +219,9 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool, gemm_backend: str =
         out_bytes = _rank_state_bytes(sharded, 0) + _nbytes(cost["result"][1])
     else:
         b = shape.global_batch
-        psh = named(mesh, param_specs(params, fsdp=True, multi_pod=multi_pod,
-                                      expert_mode=expert_mode))
+        psh_specs = param_specs(params, fsdp=True, multi_pod=multi_pod,
+                                expert_mode=expert_mode)
+        psh = named(mesh, psh_specs)
         placed = {k: place(p.detach(), psh[k]) for k, p in reference_leaves(params).items()}
         if shape.kind == "prefill":
             batch, max_len = specs, shape.seq_len
@@ -206,14 +242,14 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool, gemm_backend: str =
         tok_spec = dp if b % n_data == 0 else P()
         rows = dp if shape.kind == "prefill" else tok_spec
         skeleton = Model(cfg, device="meta").init()
+        split = model_split(psh_specs, cfg, mesh)
 
         def program(placed, batch, cache):
             outs = []
-            for _, dev, leaves, block in gathered_programs(mesh, placed, batch,
-                                                           multi_pod=multi_pod, ranks=[0]):
-                bind(skeleton, {k: nn.Parameter(t, requires_grad=False)
-                                for k, t in leaves.items()})
-                rank_cache = _cache_block(cache, cspecs, mesh, 0, rows)
+            for _, _, leaves, block in sharded_programs(mesh, placed, batch, multi_pod=multi_pod,
+                                                        ranks=[0], split=split):
+                bind(skeleton, {k: rank_leaf(t, False) for k, t in leaves.items()})
+                rank_cache = _cache_block(cache, cspecs, mesh, 0, rows, bool(split))
                 with torch.no_grad():
                     if shape.kind == "prefill":
                         outs.append(model.prefill(skeleton, block, rank_cache))
@@ -231,6 +267,7 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool, gemm_backend: str =
         cost = analyze(program, placed, batch if shape.kind == "prefill" else {}, cache)
         out_bytes = _nbytes(cost["result"][0]) + _nbytes(cost["result"][1])
     trace_s = time.time() - t0
+    clip = cost["collective_purposes"].get("clip-norm", {"bytes": 0.0, "largest": 0.0})
     return {
         "status": "ok",
         "arch": arch, "shape": shape_name,
@@ -243,6 +280,8 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool, gemm_backend: str =
         "bytes_per_device": cost["bytes_written"],
         "collective_bytes_per_device": cost["collective_bytes"],
         "collective_total_per_device": cost["collective_total"],
+        "clip_norm_gather_bytes_per_device": clip["bytes"],
+        "clip_norm_largest_gather_bytes": clip["largest"],
         "memory": {
             "argument_bytes": arg_bytes,
             "output_bytes": out_bytes,

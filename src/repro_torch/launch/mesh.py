@@ -52,6 +52,35 @@ class Mesh:
                     for name in self.axis_names)
         return list(self.devices[idx])
 
+    def axis_size(self, axis: str) -> int:
+        """The size of ``axis``; 1 for an axis the mesh does not have."""
+        return self.shape.get(axis, 1)
+
+    def coords(self, rank: int) -> dict[str, int]:
+        """Axis name -> the index of mesh rank ``rank`` (row-major over
+        ``devices``) along it."""
+        return dict(zip(self.axis_names,
+                        (int(i) for i in np.unravel_index(rank, self.devices.shape))))
+
+    def axis_index(self, rank: int, axis: str) -> int:
+        """Rank ``rank``'s index along ``axis`` (0 on an axis the mesh does
+        not have)."""
+        return self.coords(rank).get(axis, 0)
+
+    def sub(self, axis: str, index: int) -> tuple["Mesh", list[int]]:
+        """The mesh of the other axes at ``index`` along ``axis``, and the
+        ranks of this mesh it holds, in its own rank order (made once an
+        axis and index)."""
+        cache = self.__dict__.setdefault("_subs", {})
+        if (axis, index) not in cache:
+            pos = self.axis_names.index(axis)
+            sl = tuple(index if i == pos else slice(None) for i in range(len(self.axis_names)))
+            ranks = np.arange(self.devices.size).reshape(self.devices.shape)[sl]
+            cache[axis, index] = (Mesh(self.devices[sl], self.axis_names[:pos]
+                                       + self.axis_names[pos + 1:]),
+                                  [int(r) for r in ranks.flat])
+        return cache[axis, index]
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={sorted({str(d) for d in self.devices.flat})})"
 

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from .config import ModelConfig
+from . import tensor_parallel as tp
 from .layers import apply_rope, dense_init, frozen, matmul, softcap, zeros
 from .paged_kv import paged_gather, paged_update
 
@@ -116,7 +117,11 @@ def gqa_apply(p: GQAAttention, x: torch.Tensor, cfg: ModelConfig, t: AttnTempora
               cross_kv: Optional[torch.Tensor] = None):
     """Returns (out, new_cache); ``cache`` is None when not serving. If
     ``cross_kv`` is given, keys/values come from it (encoder memory) and no
-    causal mask / rope is applied."""
+    causal mask / rope is applied. With the projections split over "model"
+    (``tensor_parallel.ModelSplit``) it runs tensor-parallel
+    (``_gqa_split``)."""
+    if isinstance(p.wq, tp.ModelSplit):
+        return _gqa_split(p, x, cfg, t, layer_window, cache)
     b, s, _ = x.shape
     h, kvh, hd = _h_eff(cfg), cfg.num_kv_heads, cfg.head_dim
     gemm = cfg.gemm
@@ -137,14 +142,23 @@ def gqa_apply(p: GQAAttention, x: torch.Tensor, cfg: ModelConfig, t: AttnTempora
         mask = torch.ones((b, s, src.shape[1]), dtype=torch.bool, device=x.device)
         out = _sdpa(q, k, v, mask, cfg.attn_softcap)
         return matmul(out, p.wo, gemm), cache
+    return matmul(_attend(q, k, v, cfg, t, layer_window, cache), p.wo, gemm), cache
 
+
+def _attend(q, k, v, cfg: ModelConfig, t: AttnTemporal, layer_window,
+            cache: Optional[dict]) -> torch.Tensor:
+    """Causal self-attention of q (B, S, H, hd) over k, v (B, S, KV, hd),
+    RoPE applied here: over the sequence (training, ``cache`` None), or
+    with the keys and values written into ``cache`` in place (serving).
+    Returns (B, S, H * hd)."""
+    b, s = q.shape[:2]
+    dev = q.device
     q = apply_rope(q, t.positions, cfg.rope_theta)
     k = apply_rope(k, t.positions, cfg.rope_theta)
 
     if cache is None:  # training: self-attention over the sequence
         mask = _mask(t.positions, t.positions, layer_window, causal=True)
-        out = _sdpa(q, k, v, mask, cfg.attn_softcap)
-        return matmul(out, p.wo, gemm), None
+        return _sdpa(q, k, v, mask, cfg.attn_softcap)
 
     # serving: write into the cache (in place), attend over its valid prefix
     paged = t.block_tables is not None
@@ -158,7 +172,7 @@ def gqa_apply(p: GQAAttention, x: torch.Tensor, cfg: ModelConfig, t: AttnTempora
             k_all = paged_gather(cache["k"], t.block_tables)
             v_all = paged_gather(cache["v"], t.block_tables)
         elif per_slot:  # dense slot cache, per-slot depths: row scatter
-            rows = torch.arange(b, device=x.device)
+            rows = torch.arange(b, device=dev)
             idx = idx.long()
             cache["k"][rows, idx] = k[:, 0]
             cache["v"][rows, idx] = v[:, 0]
@@ -169,24 +183,76 @@ def gqa_apply(p: GQAAttention, x: torch.Tensor, cfg: ModelConfig, t: AttnTempora
             cache["v"][:, idx:idx + 1] = v
             k_all, v_all = cache["k"], cache["v"]
         L = k_all.shape[1]
-        k_pos = torch.arange(L, dtype=torch.int32, device=x.device).expand(b, L)
+        k_pos = torch.arange(L, dtype=torch.int32, device=dev).expand(b, L)
         valid = k_pos <= (idx[:, None] if per_slot or paged else idx)
         mask = _mask(t.positions, k_pos, layer_window, causal=False) & valid[:, None, :]
-        out = _sdpa(q, k_all, v_all, mask, cfg.attn_softcap)
-    else:  # prefill
-        if paged:  # ragged right-padded bucket: rows own disjoint pages
-            paged_update(cache["k"], k, t.block_tables, t.positions)
-            paged_update(cache["v"], v, t.block_tables, t.positions)
-        else:
-            cache["k"][:, :s] = k
-            cache["v"][:, :s] = v
-        mask = _mask(t.positions, t.positions, layer_window, causal=True)
-        if t.lengths is not None:  # mask keys past each row's prompt
-            key_ok = (torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
-                      < t.lengths[:, None])
-            mask &= key_ok[:, None, :]
-        out = _sdpa(q, k, v, mask, cfg.attn_softcap)
-    return matmul(out, p.wo, gemm), cache
+        return _sdpa(q, k_all, v_all, mask, cfg.attn_softcap)
+    # prefill
+    if paged:  # ragged right-padded bucket: rows own disjoint pages
+        paged_update(cache["k"], k, t.block_tables, t.positions)
+        paged_update(cache["v"], v, t.block_tables, t.positions)
+    else:
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+    mask = _mask(t.positions, t.positions, layer_window, causal=True)
+    if t.lengths is not None:  # mask keys past each row's prompt
+        key_ok = (torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+                  < t.lengths[:, None])
+        mask &= key_ok[:, None, :]
+    return _sdpa(q, k, v, mask, cfg.attn_softcap)
+
+
+def head_local(cfg: ModelConfig, model: int) -> bool:
+    """Whether attention runs head-local on ``model`` ranks: both head
+    counts divide it. ``_sdpa`` orders the query heads kv-major, so rank j's
+    q columns are then exactly the query heads of its kv heads."""
+    return _h_eff(cfg) % model == 0 and cfg.num_kv_heads % model == 0
+
+
+def _on(t: AttnTemporal, dev: torch.device) -> AttnTemporal:
+    """``t``'s tensors on ``dev`` (a model rank's device)."""
+    return AttnTemporal(*(x.to(dev) if torch.is_tensor(x) else x for x in t))
+
+
+def _gqa_split(p: GQAAttention, x: torch.Tensor, cfg: ModelConfig, t: AttnTemporal,
+               layer_window, cache: Optional[dict]):
+    """GQA with its projections split over "model" (tensor-parallel): q, k
+    and v column-parallel, ``wo`` row-parallel. Where ``head_local`` holds,
+    each rank attends with its own heads over its own cache block.
+    Otherwise q, k and v are all-gathered over "model", attention runs
+    whole (so does the cache: its blocks gathered, written, and each rank's
+    block written back), and each rank takes its columns of the output for
+    its row block of ``wo``. A cache is the ranks' kv-head blocks
+    (``tensor_parallel.split_cache``)."""
+    axis = p.wq.axis
+    b, s, _ = x.shape
+    hd, gemm = cfg.head_dim, cfg.gemm
+    q, k, v = (matmul(x, w, gemm) for w in (p.wq, p.wk, p.wv))
+    if cfg.qkv_bias:
+        q, k, v = ([y + bias.to(y.dtype) for y, bias in zip(ys, bb.blocks)]
+                   for ys, bb in ((q, p.bq), (k, p.bk), (v, p.bv)))
+    if head_local(cfg, axis.size):
+        if cfg.num_kv_heads == axis.size > 1 and b > 1:
+            k = [tp.keys_cotangent_as_whole(kj) for kj in k]
+        out = []
+        for j, (qj, kj, vj) in enumerate(zip(q, k, v)):
+            cj = None if cache is None else {n: cache[n][j] for n in ("k", "v")}
+            out.append(_attend(qj.reshape(b, s, -1, hd), kj.reshape(b, s, -1, hd),
+                               vj.reshape(b, s, -1, hd), cfg, _on(t, qj.device),
+                               layer_window, cj))
+        return matmul(out, p.wo, gemm), cache
+    q, k, v = (tp.gather(y, axis, w.sizes).reshape(b, s, -1, hd)
+               for y, w in ((q, p.wq), (k, p.wk), (v, p.wv)))
+    whole = None
+    if cache is not None:
+        kv_sizes = tp.block_sizes(cfg.num_kv_heads, axis.size)
+        whole = {n: tp.gather(cache[n], axis, kv_sizes, -2) for n in ("k", "v")}
+    out = _attend(q, k, v, cfg, t, layer_window, whole)
+    if cache is not None:
+        for n in ("k", "v"):
+            for blk, mine in zip(cache[n], tp.scatter(whole[n], axis, kv_sizes, -2)):
+                blk.copy_(mine)
+    return matmul(tp.scatter(out, axis, p.wo.sizes), p.wo, gemm), cache
 
 
 # ------------------------------------------------------------------ MLA

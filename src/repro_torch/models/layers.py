@@ -20,6 +20,8 @@ from repro_torch.core.gemm import backend_matmul, plan_source
 from repro_torch.core.plan import QuantizedMatrix
 from repro_torch.precision import resolve_policy
 
+from .tensor_parallel import ModelSplit, split_matmul
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float64": torch.float64}
 
 
@@ -76,8 +78,13 @@ def matmul(x: torch.Tensor, w, policy=None, out_dtype=None) -> torch.Tensor:
     weight-residue cache): its cached quantization phases are skipped and
     only the activation side is quantized per call. The emulated product
     comes back in f64 and is cast to ``out_dtype`` (default: x's), as in
-    the reference.
+    the reference. ``w`` may be a leaf split over "model"
+    (``tensor_parallel.ModelSplit``): then the product is
+    column-parallel (x whole, the ranks' blocks out) or row-parallel (x the
+    ranks' blocks, their sum out).
     """
+    if isinstance(w, ModelSplit):
+        return split_matmul(x, w, policy, out_dtype)
     pol = resolve_policy(policy)
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
@@ -154,10 +161,21 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype, gated: bool = True)
 
 
 def mlp_apply(p: MLP, x: torch.Tensor, act: str, gemm=None) -> torch.Tensor:
+    """The MLP; with its matrices split over "model", the up and gate
+    projections column-parallel, the activation on each rank's block, the
+    down projection row-parallel."""
     u = matmul(x, p.w_up, gemm)
     if hasattr(p, "w_gate"):
         g = matmul(x, p.w_gate, gemm)
-        h = activation(g, act) * u
+        h = blockwise(lambda g, u: activation(g, act) * u, g, u)
     else:
-        h = activation(u, act)
+        h = blockwise(lambda u: activation(u, act), u)
     return matmul(h, p.w_down, gemm)
+
+
+def blockwise(fn, *xs):
+    """``fn`` on each rank's blocks of activations split over "model"
+    (lists), or on whole tensors."""
+    if isinstance(xs[0], list):
+        return [fn(*b) for b in zip(*xs)]
+    return fn(*xs)

@@ -39,6 +39,7 @@ from .config import ModelConfig, validate
 from .layers import (META_DRAWS, dtype_of, embed_init, frozen, matmul, randn, rmsnorm, softcap,
                      zeros)
 from .ssm import init_ssm_state
+from .tensor_parallel import ModelSplit, gathered_logits, vocab_parallel_embed
 
 
 class TrainOutput(NamedTuple):
@@ -184,7 +185,10 @@ class Model:
         """Token embeddings, after the projected ``patch_embeds`` (B, P,
         frontend_dim) of a vit-stub frontend when given."""
         cfg = self.cfg
-        tok = params.embed[self._tokens(tokens)].to(self.dtype)
+        if isinstance(params.embed, ModelSplit):  # vocab rows split over "model"
+            tok = vocab_parallel_embed(params.embed, self._tokens(tokens)).to(self.dtype)
+        else:
+            tok = params.embed[self._tokens(tokens)].to(self.dtype)
         scale = cfg.d_model ** 0.5 if cfg.post_norms else 1.0
         tok = tok * torch.tensor(scale, dtype=self.dtype, device=tok.device)
         if cfg.frontend != "vit-stub" or patch_embeds is None:
@@ -229,7 +233,10 @@ class Model:
         cfg = self.cfg
         x = rmsnorm(x, params.final_norm, cfg.norm_eps)
         head = params.embed.T if cfg.tie_embeddings else params.lm_head
-        logits = matmul(x, head, cfg.gemm, out_dtype=torch.float32)
+        if isinstance(head, ModelSplit):  # vocab split over "model": column-parallel, gathered
+            logits = gathered_logits(x, head, cfg.gemm)
+        else:
+            logits = matmul(x, head, cfg.gemm, out_dtype=torch.float32)
         logits = softcap(logits, cfg.final_softcap)
         if cfg.padded_vocab != cfg.vocab_size:  # mask the TP-padding tail
             pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size

@@ -64,11 +64,15 @@ def init(cfg: AdamWConfig, params: dict) -> OptState:
     return OptState(step, m, v)
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of every leaf's f32 sum of squares, in leaf order."""
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's f32 sum of squares, in leaf order
+    (``tree`` a name -> leaf dict, or the leaves in order). A leaf is
+    summed in row-major order whatever its strides (a sum runs in memory
+    order), so a leaf gathered from blocks gives the bits of the leaf that
+    autograd accumulated whole (``models.tensor_parallel``, Layout)."""
     total = None
-    for g in tree.values():
-        sq = torch.sum(torch.square(g.to(torch.float32)))
+    for g in tree.values() if isinstance(tree, dict) else tree:
+        sq = torch.sum(torch.square(g.to(torch.float32).contiguous()))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 

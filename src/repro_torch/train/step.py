@@ -54,14 +54,21 @@ def loss_fn(model: Model, params: CausalLM, batch: dict) -> tuple[torch.Tensor, 
     return loss, metrics
 
 
+def _each(fn, tree: dict) -> dict:
+    """``fn`` on every tensor of a name -> tensor (or list of tensors) dict."""
+    return {k: [fn(t) for t in v] if isinstance(v, list) else fn(v) for k, v in tree.items()}
+
+
 def grads_of(model: Model, params: CausalLM, leaves: dict, batch: dict):
     """The gradient of ``loss_fn`` with respect to ``leaves`` (name ->
-    parameter of ``params``), and the detached metrics."""
+    parameter of ``params``, or the list of a leaf's blocks as a rank's
+    program holds a leaf split over "model": a gradient a block), and the
+    detached metrics."""
     loss, metrics = loss_fn(model, params, batch)
+    flat = [t for v in leaves.values() for t in (v if isinstance(v, list) else [v])]
     # a leaf the loss does not reach gets zeros, as under jax.grad
-    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True,
-                                materialize_grads=True)
-    return dict(zip(leaves, grads)), {k: v.detach() for k, v in metrics.items()}
+    it = iter(torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True))
+    return _each(lambda _: next(it), leaves), {k: v.detach() for k, v in metrics.items()}
 
 
 def batch_grads(model: Model, params: CausalLM, leaves: dict, batch: dict,
@@ -70,20 +77,19 @@ def batch_grads(model: Model, params: CausalLM, leaves: dict, batch: dict,
     on the model's device), summed in order from zero and divided, as the
     reference's ``lax.scan`` does; the metrics are the last microbatch's.
     The single-device step and each data rank of the sharded step
-    (``distribution.spmd``) run this."""
+    (``distribution.spmd``, on its rank-local leaves) run this."""
     if microbatches == 1:
         return grads_of(model, params, leaves, batch)
-    grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for k, p in leaves.items()}
+    grads = _each(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), leaves)
     for i in range(microbatches):
         mb = {k: v.reshape(microbatches, v.shape[0] // microbatches, *v.shape[1:])[i]
               for k, v in batch.items()}
         g, metrics = grads_of(model, params, leaves, mb)
         for k, gk in g.items():
-            grads[k] = grads[k] + gk
+            grads[k] = ([a + b for a, b in zip(grads[k], gk)] if isinstance(gk, list)
+                        else grads[k] + gk)
         del g
-    for gk in grads.values():
-        gk.div_(microbatches)
+    _each(lambda gk: gk.div_(microbatches), grads)
     return grads, metrics
 
 
